@@ -1,0 +1,176 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface and loaded with ``ctypes``.  The
+build happens at first use into ``build/kernels/`` at the repository root
+(one library per source, named by a hash of its sources and flags, so an
+unchanged library is reused); ``build()`` compiles all sources at once,
+one ``nvcc`` process each.
+
+``launches`` counts, per kernel, the launches its wrapper has made; a run
+sets them to 0 with ``reset_launches()`` and reads them afterwards to show
+which kernels a path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+import torch
+
+CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build", "kernels"
+)
+SOURCES = {
+    "snake_filtered": ("snake_filtered.cu", "snake.cuh"),
+    "residual_unit": ("residual_unit.cu", "snake.cuh"),
+}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "snake_filtered": {"snake_filtered_launch": [_P] * 4 + [_I] * 3 + [_P]},
+    "residual_unit": {
+        "residual_unit_launch": [_P] * 10 + [_I] * 5 + [_P],
+        "residual_unit_smem_bytes": [_I] * 3,
+    },
+}
+
+launches: Dict[str, int] = {name: 0 for name in SOURCES}
+build_log: Dict[str, str] = {}
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.RLock()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _taps_header() -> str:
+    """Path of a header defining SNAKE_TAPS, written if missing.  (nvcc
+    splits -D values at commas, so the 12 taps go through a file.)"""
+    from flamed_tts_tpu_torch.ops.resample import snake_taps
+
+    # repr of the float32 value as a double is exact, so the literal rounds
+    # back to the same float32.
+    text = "#define SNAKE_TAPS " + ", ".join(f"{float(v)!r}f" for v in snake_taps()) + "\n"
+    path = os.path.join(BUILD_DIR, f"snake_taps-{hashlib.sha256(text.encode()).hexdigest()[:16]}.h")
+    if not os.path.exists(path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(f"{path}.{os.getpid()}.tmp", "w") as f:
+            f.write(text)
+        os.replace(f"{path}.{os.getpid()}.tmp", path)
+    return path
+
+
+def _flags() -> list:
+    return [
+        "-gencode=arch=compute_90a,code=sm_90a",
+        "-std=c++17",
+        "-O3",
+        "-shared",
+        "-Xcompiler",
+        "-fPIC",
+        "-Xptxas",
+        "-v",
+        "-include",
+        _taps_header(),
+    ]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str, flags: list) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in SOURCES[name]:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile the named kernels (all by default) that are not built yet,
+    all ``nvcc`` processes at once; load them.  Returns seconds per
+    kernel built (0.0 where the library already existed).  Raises on any
+    failed build."""
+    names = list(SOURCES if names is None else names)
+    flags = _flags()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        path = _lib_path(name, flags)
+        if os.path.exists(path):
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *flags, "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name][0])]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, path)
+    seconds = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp, path) in procs.items():
+        out, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        build_log[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("kernel build failed\n" + "\n".join(failed))
+    for name in names:
+        library(name)
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            path = _lib_path(name, _flags())
+            if not os.path.exists(path):
+                build([name])
+            lib = ctypes.CDLL(path)
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+    return _libs[name]
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t: torch.Tensor, what: str, shape=None) -> None:
+    """The wrappers' input check: CUDA, float32, contiguous, shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{what} must be a CUDA tensor")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{what} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}")

@@ -1,0 +1,151 @@
+"""FaCodec: frozen codec parameters on one device, with prompt analysis
+(``encode_prompt``) and waveform synthesis (``decode``).
+
+The prompt wav is zero-padded to a seconds bucket, as the JAX package's
+staged path pads it, so that the codes and the timbre equal its outputs.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from flamed_tts_tpu_torch.config import load_default_config
+from flamed_tts_tpu_torch.convert import codec_tree
+from flamed_tts_tpu_torch.device import resolve_device
+from flamed_tts_tpu_torch.models.facodec.decoder import analyze, synthesize
+from flamed_tts_tpu_torch.models.facodec.encoder import encoder_forward
+from flamed_tts_tpu_torch.ops.masking import mask_from_lengths
+from flamed_tts_tpu_torch.runtime.buckets import DEFAULT_WAV_SECOND_BUCKETS, pick_bucket
+from flamed_tts_tpu_torch.runtime.pytree_io import load_pytree_npz
+
+
+def _conv(g: torch.Generator, c_out: int, c_in: int, k: int) -> Dict:
+    w = torch.randn((c_out, c_in, k), generator=g) / np.sqrt(c_in * k)
+    return {"w": w, "b": torch.zeros(c_out)}
+
+
+def _act(c: int) -> Dict:
+    return {"alpha": torch.zeros(c), "beta": torch.zeros(c)}
+
+
+def _unit(g: torch.Generator, c: int) -> Dict:
+    return {"act1": _act(c), "conv1": _conv(g, c, c, 7), "act2": _act(c), "conv2": _conv(g, c, c, 1)}
+
+
+def _random_encoder(g: torch.Generator, ngf: int, up_ratios, out_channels: int) -> Dict:
+    d = ngf
+    p: Dict = {"stem": _conv(g, d, 1, 7), "blocks": []}
+    for stride in up_ratios:
+        d *= 2
+        p["blocks"].append({"res": [_unit(g, d // 2) for _ in range(3)], "act": _act(d // 2),
+                            "down": _conv(g, d, d // 2, 2 * stride)})
+    p["final_act"] = _act(d)
+    p["out"] = _conv(g, out_channels, d, 3)
+    return p
+
+
+def _random_decoder(g: torch.Generator, dim: int, ch: int, up_ratios) -> Dict:
+    def lin(c_out, c_in):
+        return {"w": torch.randn((c_out, c_in), generator=g) * 0.02, "b": torch.zeros(c_out)}
+
+    def fvq():
+        return {"in_proj": lin(8, dim), "out_proj": lin(dim, 8),
+                "codebook": torch.randn((1024, 8), generator=g)}
+
+    def ln():
+        return {"g": torch.ones(dim), "b": torch.zeros(dim)}
+
+    layers = [{"ln1": ln(), "ln2": ln(),
+               "attn": {"in_proj_w": lin(3 * dim, dim)["w"], "in_proj_b": torch.zeros(3 * dim),
+                        "out_proj_w": lin(dim, dim)["w"], "out_proj_b": torch.zeros(dim)},
+               "ffn1": {"w": torch.randn((4 * dim, dim, 5), generator=g) * 0.02,
+                        "b": torch.zeros(4 * dim)},
+               "ffn2": lin(dim, 4 * dim)} for _ in range(4)]
+    p: Dict = {
+        "quantizers": [[fvq() for _ in range(n)] for n in (1, 2, 3)],
+        "timbre_encoder": {"layers": layers, "last_ln": ln()},
+        "timbre_linear": {"w": lin(2 * dim, dim)["w"],
+                          "b": torch.cat([torch.ones(dim), torch.zeros(dim)])},
+        "stem": _conv(g, ch, dim, 7),
+        "blocks": [],
+    }
+    for i, stride in enumerate(up_ratios):
+        c_in, c_out = ch // 2 ** i, ch // 2 ** (i + 1)
+        up = torch.randn((c_in, c_out, 2 * stride), generator=g) / np.sqrt(2 * c_in)
+        p["blocks"].append({"act": _act(c_in), "up": {"w": up, "b": torch.zeros(c_out)},
+                            "res": [_unit(g, c_out) for _ in range(3)]})
+    final = ch // 2 ** len(up_ratios)
+    p["final_act"] = _act(final)
+    p["out"] = _conv(g, 1, final, 7)
+    p["out"]["w"] = p["out"]["w"] * 0.01
+    return p
+
+
+class FaCodec:
+    def __init__(self, enc_params, dec_params, device: Union[str, torch.device, None] = None,
+                 sr: int = 16000, up_ratios_enc=(2, 4, 5, 5), up_ratios_dec=(5, 5, 4, 2)):
+        self.device = resolve_device(device)
+        self.enc_params = codec_tree(enc_params, self.device)
+        self.dec_params = codec_tree(dec_params, self.device)
+        self.sr = sr
+        self.up_ratios_enc = tuple(up_ratios_enc)
+        self.up_ratios_dec = tuple(up_ratios_dec)
+        self.hop = int(np.prod(self.up_ratios_enc))
+
+    @classmethod
+    def from_pretrained(cls, ckpt_dir: str, codec_cfg: Optional[Dict] = None,
+                        device: Union[str, torch.device, None] = None) -> "FaCodec":
+        """Load the converted .npz checkpoints named by ``codec_cfg``
+        (default ``configs/codec.yaml``) from ``ckpt_dir``."""
+        device = resolve_device(device)
+        cfg = codec_cfg or load_default_config()["codec_cfg"]
+        trees = []
+        for part in ("encoder", "decoder"):
+            path = os.path.join(ckpt_dir, cfg[part]["ckpt_filename"])
+            if not os.path.isfile(path):
+                raise FileNotFoundError(f"codec checkpoint not found: {path}")
+            trees.append(load_pytree_npz(path))
+        return cls(*trees, device=device, sr=cfg.get("sr", 16000),
+                   up_ratios_enc=cfg["encoder"]["up_ratios"],
+                   up_ratios_dec=cfg["decoder"]["up_ratios"])
+
+    @classmethod
+    def random_init(cls, generator: torch.Generator, device: Union[str, torch.device, None] = None,
+                    codec_cfg: Optional[Dict] = None) -> "FaCodec":
+        """Random weights with the converted checkpoints' structure."""
+        cfg = codec_cfg or load_default_config()["codec_cfg"]
+        enc, dec = cfg["encoder"], cfg["decoder"]
+        return cls(_random_encoder(generator, enc["ngf"], enc["up_ratios"], enc["out_channels"]),
+                   _random_decoder(generator, dec["in_channels"], dec["upsample_initial_channel"],
+                                   dec["up_ratios"]),
+                   device=device, sr=cfg.get("sr", 16000),
+                   up_ratios_enc=enc["up_ratios"], up_ratios_dec=dec["up_ratios"])
+
+    def pad_prompt_wav(self, wav: np.ndarray) -> Tuple[np.ndarray, int]:
+        """Prompt wav (T,) -> (seconds-bucket padded wav, true frame count)."""
+        wav = np.asarray(wav, dtype=np.float32).squeeze()
+        n = wav.shape[-1]
+        bucket_s = pick_bucket(max(1, int(np.ceil(n / self.sr))), DEFAULT_WAV_SECOND_BUCKETS)
+        padded = np.zeros(bucket_s * self.sr, dtype=np.float32)
+        padded[: min(n, len(padded))] = wav[: len(padded)]
+        return padded, n // self.hop
+
+    @torch.no_grad()
+    def encode_prompt(self, wav: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Prompt wav (T,) float32 -> (codes (6, T') int32, timbre (256,))."""
+        padded, n_frames = self.pad_prompt_wav(wav)
+        n_total = len(padded) // self.hop
+        wav_t = torch.as_tensor(padded, device=self.device)[None, :, None]
+        pad_mask = mask_from_lengths(torch.tensor([n_frames], device=self.device), n_total)
+        latents = encoder_forward(self.enc_params, wav_t, self.up_ratios_enc)
+        codes, timbre = analyze(self.dec_params, latents, pad_mask)
+        return codes[:, 0, :n_frames].cpu().numpy(), timbre[0].cpu().numpy()
+
+    @torch.no_grad()
+    def decode(self, latents: torch.Tensor, timbre: torch.Tensor) -> torch.Tensor:
+        """latents (B, T, 256) + timbre (B, 256) -> wav (B, T * hop, 1)."""
+        return synthesize(self.dec_params, latents, timbre, self.up_ratios_dec)

@@ -1,0 +1,56 @@
+"""FaCodec decoder: analysis (RVQ codes + timbre) and synthesis
+(latents + timbre -> wav).
+
+* ``analyze``: prompt latents -> 6 code streams [prosody, content x2,
+  residual x3] (the residual group quantizes x - (prosody + content)) and
+  the pooled timbre vector.
+* ``synthesize``: timbre-conditioned LayerNorm -> conv stem -> 4 decoder
+  blocks (Snake, strided conv-transpose, 3 residual units) -> Snake ->
+  output conv -> tanh.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import Tensor
+
+from flamed_tts_tpu_torch.models.facodec.quantize import rvq_encode
+from flamed_tts_tpu_torch.models.facodec.timbre import timbre_encoder_forward
+from flamed_tts_tpu_torch.ops.conv1d import conv1d, conv_transpose1d
+from flamed_tts_tpu_torch.ops.resunit import residual_stack
+from flamed_tts_tpu_torch.ops.snake import snake_filtered
+
+
+def analyze(params: Dict, latents: Tensor, pad_mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """Returns (codes (6, B, T) int32, timbre (B, 256))."""
+    x = latents if pad_mask is None else latents.masked_fill(pad_mask[:, :, None], 0.0)
+    prosody_codes, prosody_q = rvq_encode(x, params["quantizers"][0])
+    content_codes, content_q = rvq_encode(x, params["quantizers"][1])
+    residual_codes, _ = rvq_encode(x - (prosody_q + content_q), params["quantizers"][2])
+    codes = torch.cat([prosody_codes, content_codes, residual_codes], dim=0)
+    return codes, timbre_encoder_forward(params["timbre_encoder"], latents, pad_mask)
+
+
+def decoder_block(x: Tensor, p: Dict, stride: int) -> Tensor:
+    x = snake_filtered(x, p["act"]["alpha"], p["act"]["beta"])
+    x = conv_transpose1d(x, p["up"]["w"], p["up"]["b"], stride=stride,
+                         padding=stride // 2 + stride % 2, output_padding=stride % 2)
+    return residual_stack(x, p["res"])
+
+
+def synthesize(params: Dict, latents: Tensor, timbre: Tensor,
+               up_ratios: Sequence[int] = (5, 5, 4, 2)) -> Tensor:
+    """latents (B, T, 256) + timbre (B, 256) -> wav (B, T * 200, 1)."""
+    style = timbre @ params["timbre_linear"]["w"].t() + params["timbre_linear"]["b"]
+    gamma, beta = style[:, None, :].chunk(2, dim=-1)
+    mean = latents.mean(-1, keepdim=True)
+    var = ((latents - mean) ** 2).mean(-1, keepdim=True)
+    x = (latents - mean) / torch.sqrt(var + 1e-5) * gamma + beta
+    x = conv1d(x, params["stem"]["w"], params["stem"]["b"], padding=3)
+    for block, stride in zip(params["blocks"], up_ratios):
+        x = decoder_block(x, block, stride)
+    x = snake_filtered(x, params["final_act"]["alpha"], params["final_act"]["beta"])
+    x = conv1d(x, params["out"]["w"], params["out"]["b"], padding=3)
+    return torch.tanh(x)

@@ -1,0 +1,34 @@
+"""FaCodec encoder: wav (B, T, 1) -> latents (B, T / 200, 256).
+
+Conv stem (k7) -> 4 encoder blocks (3 dilated residual units, Snake,
+strided conv doubling the channels) -> Snake -> output conv.  Functions
+over the converted param tree (nested dicts of tensors, torch conv
+layouts).  Every Snake is K1 (ops/snake.py) and every residual unit K2
+(ops/resunit.py) on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+from torch import Tensor
+
+from flamed_tts_tpu_torch.ops.conv1d import conv1d
+from flamed_tts_tpu_torch.ops.resunit import residual_stack
+from flamed_tts_tpu_torch.ops.snake import snake_filtered
+
+
+def encoder_block(x: Tensor, p: Dict, stride: int) -> Tensor:
+    x = residual_stack(x, p["res"])
+    x = snake_filtered(x, p["act"]["alpha"], p["act"]["beta"])
+    return conv1d(x, p["down"]["w"], p["down"]["b"], stride=stride,
+                  padding=stride // 2 + stride % 2)
+
+
+def encoder_forward(params: Dict, wav: Tensor, up_ratios: Sequence[int] = (2, 4, 5, 5)) -> Tensor:
+    """(B, T, 1) float32 -> (B, T // hop, out_channels)."""
+    x = conv1d(wav, params["stem"]["w"], params["stem"]["b"], padding=3)
+    for block, stride in zip(params["blocks"], up_ratios):
+        x = encoder_block(x, block, stride)
+    x = snake_filtered(x, params["final_act"]["alpha"], params["final_act"]["beta"])
+    return conv1d(x, params["out"]["w"], params["out"]["b"], padding=1)

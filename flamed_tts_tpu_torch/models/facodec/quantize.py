@@ -1,0 +1,44 @@
+"""Factorized / residual vector quantization, inference path: project to
+the 8-d codebook space, L2-normalize both sides, nearest neighbour by
+argmax of the cosine.
+
+Per layer: {"in_proj": {"w": (8, 256), "b"}, "out_proj": {"w": (256, 8),
+"b"}, "codebook": (1024, 8)}.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+from torch import Tensor
+
+
+def _linear(x: Tensor, p: Dict) -> Tensor:
+    return x @ p["w"].t() + p["b"]
+
+
+def _l2_normalize(x: Tensor) -> Tensor:
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
+
+
+def fvq_encode(x: Tensor, p: Dict) -> Tuple[Tensor, Tensor]:
+    """(B, T, D) -> (codes (B, T) int32, quantized (B, T, D))."""
+    z_n = _l2_normalize(_linear(x, p["in_proj"]))
+    c_n = _l2_normalize(p["codebook"])
+    codes = torch.argmax(z_n @ c_n.t(), dim=-1)
+    z_q = _linear(p["codebook"][codes], p["out_proj"])
+    return codes.to(torch.int32), z_q
+
+
+def rvq_encode(x: Tensor, layers: List[Dict]) -> Tuple[Tensor, Tensor]:
+    """Returns (codes (n_layers, B, T), quantized sum (B, T, D))."""
+    residual = x
+    quantized_sum = torch.zeros_like(x)
+    codes = []
+    for layer in layers:
+        c, q = fvq_encode(residual, layer)
+        residual = residual - q
+        quantized_sum = quantized_sum + q
+        codes.append(c)
+    return torch.stack(codes, dim=0), quantized_sum

@@ -1,0 +1,70 @@
+"""FaCodec timbre (speaker) encoder: 4-layer pre-LN transformer, masked
+mean pooling.
+
+Kept from the trained reference: its positional encoding is indexed by
+the *batch* index, so batch row b gets the constant sinusoid row b added
+to every frame (``batch_constant_positional_bias``).  Padded keys are
+masked and the pooling is a masked mean, so a padded prompt gives the
+exact-length result.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import Tensor
+
+from flamed_tts_tpu_torch.ops.conv1d import conv1d
+
+_NEG_INF = -1e9
+
+
+def batch_constant_positional_bias(b: int, d_model: int, device=None, max_len: int = 5000) -> Tensor:
+    """(B, 1, d) bias: rows 0..B-1 of the reference's sinusoid buffer."""
+    position = np.arange(max_len, dtype=np.float64)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float64) * (-np.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), dtype=np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return torch.as_tensor(pe[:b, None, :], dtype=torch.float32, device=device)
+
+
+def _layer_norm(x: Tensor, p: Dict, eps: float = 1e-5) -> Tensor:
+    mean = x.mean(-1, keepdim=True)
+    var = ((x - mean) ** 2).mean(-1, keepdim=True)
+    return (x - mean) / torch.sqrt(var + eps) * p["g"] + p["b"]
+
+
+def _mha(x: Tensor, p: Dict, n_head: int, pad_mask: Optional[Tensor]) -> Tensor:
+    """torch.nn.MultiheadAttention math with packed qkv projections."""
+    b, l, d = x.shape
+    q, k, v = (x @ p["in_proj_w"].t() + p["in_proj_b"]).split(d, dim=-1)
+    hd = d // n_head
+    q, k, v = (t.reshape(b, l, n_head, hd).transpose(1, 2) for t in (q, k, v))
+    scores = q @ k.transpose(-1, -2) / np.sqrt(hd)
+    if pad_mask is not None:
+        scores = scores.masked_fill(pad_mask[:, None, None, :], _NEG_INF)
+    out = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(b, l, d)
+    return out @ p["out_proj_w"].t() + p["out_proj_b"]
+
+
+def timbre_encoder_forward(params: Dict, x: Tensor, pad_mask: Optional[Tensor] = None,
+                           n_head: int = 4, conv_kernel: int = 5) -> Tensor:
+    """(B, T, 256) latents -> (B, 256) speaker embedding."""
+    x = x + batch_constant_positional_bias(x.shape[0], x.shape[-1], x.device)
+    for layer in params["layers"]:
+        x = x + _mha(_layer_norm(x, layer["ln1"]), layer["attn"], n_head, pad_mask)
+        h = _layer_norm(x, layer["ln2"])
+        if pad_mask is not None:
+            # the k=5 conv must see zeros at the true boundary
+            h = h.masked_fill(pad_mask[:, :, None], 0.0)
+        h = F.relu(conv1d(h, layer["ffn1"]["w"], layer["ffn1"]["b"], padding=conv_kernel // 2))
+        x = x + (h @ layer["ffn2"]["w"].t() + layer["ffn2"]["b"])
+    x = _layer_norm(x, params["last_ln"])
+    if pad_mask is not None:
+        valid = (~pad_mask)[:, :, None].to(x.dtype)
+        return (x * valid).sum(dim=1) / torch.clamp(valid.sum(dim=1), min=1.0)
+    return x.mean(dim=1)

@@ -1,0 +1,39 @@
+"""K1: the codec's alias-free SnakeBeta as one CUDA kernel
+(csrc/snake_filtered.cu), with the plain chain of ops/resample.py as its
+plain version.
+
+``snake_filtered`` runs the kernel for a CUDA tensor and the plain chain
+for a CPU tensor; there is no other switch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from flamed_tts_tpu_torch import kernels
+from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
+
+
+def snake_filtered_cuda(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torch.Tensor) -> torch.Tensor:
+    """x (B, T, C) float32 on the card; log_alpha, log_beta (C,)."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
+    b, t, c = x.shape
+    kernels.require(x, "x")
+    kernels.require(log_alpha, "log_alpha", (c,))
+    kernels.require(log_beta, "log_beta", (c,))
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    fn = kernels.library("snake_filtered").snake_filtered_launch
+    err = fn(x.data_ptr(), log_alpha.data_ptr(), log_beta.data_ptr(), out.data_ptr(),
+             b, t, c, kernels.stream_handle(x))
+    kernels.check(err, "snake_filtered")
+    kernels.launches["snake_filtered"] += 1
+    return out
+
+
+def snake_filtered(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return snake_filtered_reference(x, log_alpha, log_beta)
+    return snake_filtered_cuda(x, log_alpha, log_beta)

@@ -1,0 +1,103 @@
+"""Rules of the PyTorch/CUDA port: it imports no JAX and nothing of the JAX
+package, and it never drops to the CPU or to a kernel's plain version on
+its own."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import flamed_tts_tpu_torch
+
+PKG_DIR = os.path.dirname(flamed_tts_tpu_torch.__file__)
+ROOT = os.path.dirname(PKG_DIR)
+
+
+def test_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flamed_tts_tpu'] = None\n"
+        "import flamed_tts_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'flamed_tts_tpu_torch.')]\n"
+        "[importlib.import_module(n) for n in names]\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k in sys.modules if sys.modules[k])\n"
+        "print(len(names))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    n_modules = len(list(pkgutil.walk_packages([PKG_DIR], "flamed_tts_tpu_torch.")))
+    assert int(res.stdout.split()[-1]) == n_modules >= 25
+
+
+def test_no_reference_to_jax_package():
+    offenders = []
+    for dirpath, _, files in os.walk(PKG_DIR):
+        for name in files:
+            if not name.endswith((".py", ".cu", ".cuh")):
+                continue
+            path = os.path.join(dirpath, name)
+            with open(path, encoding="utf-8") as f:
+                text = f.read()
+            for needle in ("flamed_tts_tpu.", "import jax", "from jax"):
+                if needle in text:
+                    offenders.append(f"{os.path.relpath(path, ROOT)}: {needle}")
+    assert not offenders, offenders
+
+
+def test_entry_points_refuse_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    from flamed_tts_tpu_torch.config import load_default_config
+    from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
+    from flamed_tts_tpu_torch.models.flamed import Flamed
+
+    cfg = load_default_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Flamed(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FaCodec.from_pretrained(os.path.join(ROOT, "artifacts", "codec_r5"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FaCodec.random_init(torch.Generator().manual_seed(0))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    from flamed_tts_tpu_torch.ops.resunit import residual_unit_cuda
+    from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
+
+    x = torch.zeros(1, 8, 32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        snake_filtered_cuda(x, torch.zeros(32), torch.zeros(32))
+    p = {"act1": {"alpha": torch.zeros(32), "beta": torch.zeros(32)},
+         "act2": {"alpha": torch.zeros(32), "beta": torch.zeros(32)},
+         "conv1": {"w": torch.zeros(32, 32, 7), "b": torch.zeros(32)},
+         "conv2": {"w": torch.zeros(32, 32, 1), "b": torch.zeros(32)}}
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        residual_unit_cuda(x, p, 1)
+    with pytest.raises(ValueError, match="C % 32"):
+        residual_unit_cuda(torch.zeros(1, 8, 16), p, 1)
+
+
+def test_cpu_run_launches_no_kernel():
+    from flamed_tts_tpu_torch import kernels
+    from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
+
+    codec = FaCodec.random_init(torch.Generator().manual_seed(0), device="cpu")
+    kernels.reset_launches()
+    rng = np.random.RandomState(0)
+    wav = codec.decode(torch.from_numpy(rng.randn(1, 2, 256).astype(np.float32)),
+                       torch.from_numpy(rng.randn(1, 256).astype(np.float32)))
+    assert wav.shape == (1, 400, 1) and torch.isfinite(wav).all()
+    assert kernels.launches == {"snake_filtered": 0, "residual_unit": 0}
+
+
+def test_noise_shape_is_checked():
+    from flamed_tts_tpu_torch.runtime.sampler import _noise
+
+    with pytest.raises(ValueError, match="expected"):
+        _noise({"dur": np.zeros((1, 3))}, "dur", (1, 4), torch.device("cpu"), None)
