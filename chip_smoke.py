@@ -4,20 +4,26 @@
 
 Phases (any failure exits non-zero before the last line):
   1. build the CUDA kernels from flamed_tts_tpu_torch/csrc (nvcc, sm_90a);
-  2. hold each kernel against its plain PyTorch version on the card, at the
-     main path's shapes and at edge shapes;
-  3. drive the main path, Flamed.sample at full width (random prior/prob
-     weights from seed 0, the trained codec in artifacts/codec_r5, a 3 s
-     prompt, 64 + 64 Euler steps), with every kernel's launch count set to
-     0 just before and read just after; time five warm calls;
-  4. break a warm call down by stage and by device kernel (torch.profiler);
-     check the output: a finite wav of tgt_len * 200 samples, and a short
-     utterance on the card against the same on the CPU (plain versions);
+  2. hold each kernel against its plain PyTorch version on the card, in
+     fp32 and bf16, at the main paths' shapes and at edge shapes; hold the
+     fused stack (K3) bit for bit against three single-unit (K2) launches;
+  3. drive the two main paths at full width (random prior/prob weights from
+     seed 0, the trained codec in artifacts/codec_r5, a 3 s prompt, 64 + 64
+     Euler steps), each with every kernel's launch count set to 0 just
+     before and read just after, and time five warm calls of each:
+       A. phonemes -> staged path, fp32, one K2 launch a residual unit;
+       B. text -> frontend -> fused prompt path, bf16 parameters,
+          fuse_blocks=True (K3 where stack_tile admits the block);
+  4. break a warm call of each path down by stage and by device kernel
+     (torch.profiler); check the outputs: a finite wav of tgt_len * 200
+     samples, a short utterance on the card against the same on the CPU
+     (plain versions) for each path, and one forced overflow retry on B;
   5. at each main-path shape, hold the kernel against its plain version
      again and time both beside the kernel's bound: the kernel's device
      time from a CUDA graph replay, and per-call time from CUDA events
-     around back-to-back calls, which includes the host's launch cost; print the kernels line, the card's name and
-     power limit, and last the device line.
+     around back-to-back calls, which includes the host's launch cost; K3
+     also beside three K2 launches at its shape; print the kernels line,
+     the card's name and power limit, and last the device line.
 """
 
 from __future__ import annotations
@@ -34,15 +40,25 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
+PEAK_BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 TOL = 1e-4  # fp32 both sides; sinf and the order of the FIR/conv sums differ
+# bf16 io: kernel and plain version round at the same places, but their fp32
+# sums differ in order, so a value near a rounding boundary may land one bf16
+# step away and the step feeds the next stage.  An element may be off by
+# BF16_STEPS steps of 2^-7 relative to max(|ref|, mean |ref|).
+BF16_STEPS = 8
 SNAKE_FLOP_PER_ELEM = 58  # 12 upsample FMAs + 2 snakes (mul, sin, sq, fma) + 12 decimation FMAs, x2 per FMA
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CODEC_DIR = os.path.join(ROOT, "artifacts", "codec_r5")
 PHONEMES = [int(v) for v in np.random.RandomState(11).randint(64, 148, 60)]
+TEXT = "The quick brown fox jumps over the lazy dog, and 3 more follow it."
 SOURCES = {"snake_filtered": "flamed_tts_tpu_torch/csrc/snake_filtered.cu",
-           "residual_unit": "flamed_tts_tpu_torch/csrc/residual_unit.cu"}
+           "residual_unit": "flamed_tts_tpu_torch/csrc/residual_unit.cu",
+           "residual_stack": "flamed_tts_tpu_torch/csrc/residual_stack.cu"}
 REPLACES = {"snake_filtered": "flamed_tts_tpu/ops/pallas_resample.py:159",
-            "residual_unit": "flamed_tts_tpu/ops/pallas_resunit.py:455"}
+            "residual_unit": "flamed_tts_tpu/ops/pallas_resunit.py:455",
+            "residual_stack": "flamed_tts_tpu/ops/pallas_resunit.py:496"}
+DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 
 
 def log(*a):
@@ -92,28 +108,42 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(name: str, t: int, c: int) -> tuple:
-    """Least time for one call at (1, t, c): bytes over HBM rate, operations
-    over the fp32 rate; returns (ms, 'bytes' | 'operations')."""
-    n = t * c
-    if name == "snake_filtered":
-        nbytes, flops = 8 * n + 8 * c, SNAKE_FLOP_PER_ELEM * n
+def bound_ms(name: str, t: int, c: int, dtype: torch.dtype) -> tuple:
+    """Least time for one call at (1, t, c): bytes (x read once, the output
+    written once, the parameters read once) over the HBM rate, operations
+    over the peak rate of the io type (fp32: outside the tensor cores; bf16:
+    the bf16 tensor cores); returns (ms, 'bytes' | 'operations')."""
+    n, item = t * c, (2 if dtype == torch.bfloat16 else 4)
+    units = {"snake_filtered": 0, "residual_unit": 1, "residual_stack": 3}[name]
+    if units == 0:
+        nbytes, flops = 2 * item * n + 8 * c, SNAKE_FLOP_PER_ELEM * n
     else:
-        nbytes = 8 * n + 4 * (8 * c * c + 6 * c)
-        flops = 16 * t * c * c + 2 * SNAKE_FLOP_PER_ELEM * n + 2 * n
-    tb, to = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOP_PER_S
+        nbytes = 2 * item * n + units * (item * (8 * c * c + 2 * c) + 16 * c)
+        flops = units * (16 * t * c * c + 2 * SNAKE_FLOP_PER_ELEM * n + 2 * n)
+    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_FP32_FLOP_PER_S
+    tb, to = nbytes / PEAK_BYTES_PER_S, flops / peak
     return (1e3 * max(tb, to), "bytes" if tb >= to else "operations")
 
 
 def main_path_calls(codec, n_samples: int, f_bucket: int) -> list:
     """(kernel, T, C, dilation or 0, params) of every kernel call in one
     Flamed.sample: the encoder over the padded prompt, the decoder over the
-    frame bucket."""
+    frame bucket.  A block's three residual units are one residual_stack
+    call where the codec fuses blocks and stack_tile admits the block."""
+    from flamed_tts_tpu_torch.ops.resunit import stack_tile
+
+    dtype = codec.dec_params["stem"]["w"].dtype
+
+    def block(t, c, res):
+        if codec.fuse_blocks and stack_tile(c, dtype) is not None:
+            return [("residual_stack", t, c, 0, res)]
+        return [("residual_unit", t, c, d, u) for u, d in zip(res, (1, 3, 9))]
+
     calls = []
     t = n_samples
     for blk, stride in zip(codec.enc_params["blocks"], codec.up_ratios_enc):
         c = blk["act"]["alpha"].numel()
-        calls += [("residual_unit", t, c, d, u) for u, d in zip(blk["res"], (1, 3, 9))]
+        calls += block(t, c, blk["res"])
         calls.append(("snake_filtered", t, c, 0, blk["act"]))
         t //= stride
     calls.append(("snake_filtered", t, codec.enc_params["final_act"]["alpha"].numel(), 0,
@@ -122,14 +152,13 @@ def main_path_calls(codec, n_samples: int, f_bucket: int) -> list:
     for blk, stride in zip(codec.dec_params["blocks"], codec.up_ratios_dec):
         calls.append(("snake_filtered", t, blk["act"]["alpha"].numel(), 0, blk["act"]))
         t *= stride
-        c = blk["up"]["w"].shape[1]
-        calls += [("residual_unit", t, c, d, u) for u, d in zip(blk["res"], (1, 3, 9))]
+        calls += block(t, blk["up"]["w"].shape[1], blk["res"])
     calls.append(("snake_filtered", t, codec.dec_params["final_act"]["alpha"].numel(), 0,
                   codec.dec_params["final_act"]))
     return calls
 
 
-def breakdown(model, codec, wav_in) -> None:
+def breakdown(label: str, model, codec, wav_in, sample_kwargs: dict) -> None:
     """Where a warm call's time goes: the three stages timed apart on the
     host clock (each ends in a synchronize), and the device's busy share
     and top kernels from torch.profiler over one whole call."""
@@ -141,26 +170,69 @@ def breakdown(model, codec, wav_in) -> None:
         return res, 1e3 * (time.perf_counter() - t0)
 
     (codes, timbre), enc_ms = timed(lambda: codec.encode_prompt(wav_in))
-    ids = np.asarray(PHONEMES)[None]
+    ids = (np.asarray(sample_kwargs["phonemes"])[None] if "phonemes" in sample_kwargs
+           else model._get_frontend()(sample_kwargs["text"])[0])
     gen = torch.Generator(device="cuda").manual_seed(0)
     res, sample_ms = timed(lambda: model.sampler.sample(
         ids, np.array([ids.shape[1]]), codes[None].astype(np.int64), np.array([codes.shape[-1]]),
-        timbre[None], model.device, vocab_pad=model.vocab_size, generator=gen))
+        timbre[None], model.device, vocab_pad=model.vocab_size, generator=gen,
+        fused=sample_kwargs.get("fused", True)))
     _, dec_ms = timed(lambda: codec.decode(res["latents"], torch.as_tensor(timbre[None], device="cuda")))
-    log(f"[breakdown] encode_prompt {enc_ms:.1f} ms; prior + denoiser (64 + 64 Euler steps) "
+    log(f"[breakdown {label}] encode_prompt {enc_ms:.1f} ms; prior + denoiser (64 + 64 Euler steps) "
         f"{sample_ms:.1f} ms; codec decode {dec_ms:.1f} ms ({res['frame_bucket']} frames)")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        _, wall = timed(lambda: model.sample(phonemes=PHONEMES, prompt_raw=wav_in, codec=codec, seed=0))
+        _, wall = timed(lambda: model.sample(prompt_raw=wav_in, codec=codec, seed=0, **sample_kwargs))
     # device-side events only (the CPU ops that launch them carry the same time)
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     n_launch = sum(e.count for e in events)
-    log(f"[breakdown] profiled call {wall:.1f} ms: device busy {busy:.1f} ms "
+    log(f"[breakdown {label}] profiled call {wall:.1f} ms: device busy {busy:.1f} ms "
         f"({100 * busy / wall:.1f} %), {n_launch} device kernels/copies")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[breakdown]   {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+        log(f"[breakdown {label}]   {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+
+
+def drive(label: str, model, codec, wav_in, sample_kwargs: dict, kernels) -> dict:
+    """One counted call of a main path, its checks, and five warm calls."""
+    kernels.reset_launches()
+    out = model.sample(prompt_raw=wav_in, codec=codec, nsteps_durgen=64, nsteps_denoiser=64,
+                       seed=0, **sample_kwargs)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    tgt_len, f_bucket = int(out["tgt_len"][0]), int(out["frame_bucket"])
+    wav = out["wav"]
+    log(f"[main {label}] prompt {len(wav_in)} samples; tgt_len {tgt_len} frames, frame bucket "
+        f"{f_bucket}; wav {wav.shape[0]} samples, rms {np.sqrt(np.mean(wav ** 2)):.4f}, "
+        f"finite {bool(np.isfinite(wav).all())}")
+    log(f"[main {label}] kernel launches in the main-path call: {json.dumps(launches)}")
+    calls = main_path_calls(codec, len(codec.pad_prompt_wav(wav_in)[0]), f_bucket)
+    expected = {k: sum(1 for c in calls if c[0] == k) for k in launches}
+    if launches != expected:
+        raise AssertionError(f"path {label}: launches {launches}, expected {expected}")
+    if wav.shape != (tgt_len * codec.hop,) or not np.isfinite(wav).all() or tgt_len <= 0:
+        raise AssertionError(f"path {label}: output is not a finite wav of tgt_len * hop samples")
+
+    # warm calls: the host clock varies from call to call on a shared host,
+    # so take five and report each and their median
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        out2 = model.sample(prompt_raw=wav_in, codec=codec, nsteps_durgen=64, nsteps_denoiser=64,
+                            seed=0, **sample_kwargs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - w0)
+        if not np.array_equal(out2["tgt_len"], out["tgt_len"]):
+            raise AssertionError("a warm call sampled another length from the same seed")
+    wall = float(np.median(walls))
+    audio_s = tgt_len * codec.hop / 16000
+    log(f"[main {label}] warm calls: wall {', '.join(f'{1e3 * w:.1f}' for w in walls)} ms (host "
+        f"clock, each ends in synchronize); median {wall * 1e3:.1f} ms; audio {audio_s:.2f} s; "
+        f"median RTF {wall / audio_s:.4f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return {"launches": launches, "calls": calls, "f_bucket": f_bucket}
 
 
 def main() -> int:
@@ -174,7 +246,10 @@ def main() -> int:
     from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
     from flamed_tts_tpu_torch.models.flamed import Flamed
     from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
-    from flamed_tts_tpu_torch.ops.resunit import pick_tile, residual_unit_cuda, residual_unit_reference
+    from flamed_tts_tpu_torch.ops.resunit import (pick_tile, residual_stack_cuda,
+                                                  residual_stack_reference, residual_unit_cuda,
+                                                  residual_unit_reference, stack_smem_bytes,
+                                                  stack_tile)
     from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
 
     dev = torch.device("cuda")
@@ -190,156 +265,244 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    codec = FaCodec.from_pretrained(CODEC_DIR, device=dev)
+    codec = FaCodec.from_pretrained(CODEC_DIR, device=dev)            # path A: fp32, K2 per unit
+    codec_b = FaCodec.from_pretrained(CODEC_DIR, device=dev, fuse_blocks=True)
+    codec_b.cast_inference_params()                                    # path B: bf16, K3 blocks
+    codecs = {torch.float32: codec, torch.bfloat16: codec_b}
     rng = np.random.RandomState(0)
 
-    def rand(*shape):
-        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    def rand(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev).to(dtype)
 
-    def snake_args(c):
-        for blk in codec.enc_params["blocks"] + codec.dec_params["blocks"]:
+    def snake_args(c, dtype=torch.float32):
+        cd = codecs[dtype]
+        for blk in cd.enc_params["blocks"] + cd.dec_params["blocks"]:
             if blk["act"]["alpha"].numel() == c:
                 return blk["act"]
         return {"alpha": rand(c) * 0.3, "beta": rand(c) * 0.3}
 
-    def unit_args(c, d):
-        for blk in codec.enc_params["blocks"] + codec.dec_params["blocks"]:
+    def stack_args(c, dtype=torch.float32):
+        cd = codecs[dtype]
+        for blk in cd.enc_params["blocks"] + cd.dec_params["blocks"]:
             if blk["res"][0]["act1"]["alpha"].numel() == c:
-                return blk["res"][(1, 3, 9).index(d)]
+                return blk["res"]
         raise KeyError(c)
 
     # 2. kernels against their plain versions
-    max_err = {"snake_filtered": 0.0, "residual_unit": 0.0}
+    max_err = {}
 
     def compare(name, out, ref, label):
+        dtype = out.dtype
+        out, ref = out.float(), ref.float()
         diff = (out - ref).abs()
         err = float(diff.max())
-        rel = err / max(float(ref.abs().max()), 1e-30)
-        ok = bool(torch.all(diff <= TOL + TOL * ref.abs()))
-        max_err[name] = max(max_err[name], err)
-        log(f"[check] {name} {label}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
-            f"{'ok' if ok else 'FAIL'} (tol {TOL} abs + {TOL} rel)")
+        if dtype == torch.bfloat16:
+            steps = float((diff / (2.0 ** -7 * torch.maximum(ref.abs(), ref.abs().mean()))).max())
+            share = float((diff > 0).float().mean())
+            ok = steps <= BF16_STEPS
+            how = f"{steps:.2f} bf16 steps, {100 * share:.2f} % of elements differ (tol {BF16_STEPS} steps)"
+        else:
+            ok = bool(torch.all(diff <= TOL + TOL * ref.abs()))
+            how = f"max_rel_err {err / max(float(ref.abs().max()), 1e-30):.3e} (tol {TOL} abs + {TOL} rel)"
+        key = (name, DTYPE_NAMES[dtype])
+        max_err[key] = max(max_err.get(key, 0.0), err)
+        log(f"[check] {name} {DTYPE_NAMES[dtype]} {label}: max_abs_err {err:.3e}, {how} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} {label} disagrees with its plain version")
 
-    for t, c in [(80000, 64), (2000, 512), (48000, 32), (1, 64), (2, 64), (5, 64), (20, 64)]:
-        x, a = rand(1, t, c), snake_args(c)
-        compare("snake_filtered", snake_filtered_cuda(x, a["alpha"], a["beta"]),
-                snake_filtered_reference(x, a["alpha"], a["beta"]), f"(1, {t}, {c})")
-    for t, c in [(48000, 32), (2000, 512), (80000, 64), (30, 64)]:
-        for d in (1, 3, 9):
-            x, p = rand(1, t, c), unit_args(c, d)
-            compare("residual_unit", residual_unit_cuda(x, p, d), residual_unit_reference(x, p, d),
-                    f"(1, {t}, {c}) d={d} tile={pick_tile(min(t, 128), c, d)}")
+    def three_units(x, units):
+        for p, d in zip(units, (1, 3, 9)):
+            x = residual_unit_cuda(x, p, d)
+        return x
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for t, c in [(80000, 64), (2000, 512), (48000, 32), (1, 64), (2, 64), (5, 64), (20, 64)]:
+            x, a = rand(1, t, c, dtype=dtype), snake_args(c, dtype)
+            compare("snake_filtered", snake_filtered_cuda(x, a["alpha"], a["beta"]),
+                    snake_filtered_reference(x, a["alpha"], a["beta"]), f"(1, {t}, {c})")
+        for t, c in [(48000, 32), (2000, 512), (80000, 64), (30, 64)]:
+            for p, d in zip(stack_args(c, dtype), (1, 3, 9)):
+                x = rand(1, t, c, dtype=dtype)
+                compare("residual_unit", residual_unit_cuda(x, p, d), residual_unit_reference(x, p, d),
+                        f"(1, {t}, {c}) d={d} tile={pick_tile(min(t, 128), c, d, x.element_size())}")
+        # K3 at every (C, dtype) stack_tile admits, at edge shapes (shorter
+        # than the stack's halo of 75 rows, around twice it, a non-multiple
+        # of the tile) and at main-path lengths
+        smem_fn = kernels.library("residual_stack").residual_stack_smem_bytes
+        for c in (32, 64, 128, 256, 512):
+            tile = stack_tile(c, dtype)
+            if tile is None:
+                continue
+            item = 2 if dtype == torch.bfloat16 else 4
+            if smem_fn(c, tile, 1, 3, 9, item) != stack_smem_bytes(c, tile, item):
+                raise AssertionError("stack_smem_bytes disagrees with residual_stack.cu")
+            units = stack_args(c, dtype)
+            for t in (1, 30, 149, 151, 3 * tile + 17, 24000):
+                x = rand(1, t, c, dtype=dtype)
+                out = residual_stack_cuda(x, units)
+                compare("residual_stack", out, residual_stack_reference(x, units),
+                        f"(1, {t}, {c}) tile={tile}")
+                if not torch.equal(out, three_units(x, units)):
+                    raise AssertionError(f"residual_stack (1, {t}, {c}) {dtype} is not bit for bit "
+                                         "three residual_unit launches")
+            log(f"[check] residual_stack {DTYPE_NAMES[dtype]} C={c} tile={tile}: equal to three "
+                f"residual_unit launches bit for bit at T = 1, 30, 149, 151, {3 * tile + 17}, 24000")
     torch.cuda.synchronize()
 
-    # 3. the main path
+    # 3. the main paths
     cfg = load_default_config()
     model = Flamed(cfg, device=dev)  # random weights from torch.Generator().manual_seed(0)
+    model_b = Flamed(cfg, params={"prior": model.prior.state_dict(), "prob": model.prob.state_dict()},
+                     device=dev)
+    model_b.cast_inference_params()
     log(f"[main] Flamed: {model.num_params() / 1e6:.1f} M params (prior + prob), codec_r5 codec")
     wav_in = prompt_wav(3.0, seed=1)
-    kernels.reset_launches()
-    out = model.sample(phonemes=PHONEMES, prompt_raw=wav_in, codec=codec,
-                       nsteps_durgen=64, nsteps_denoiser=64, seed=0)
-    torch.cuda.synchronize()
-    launches = dict(kernels.launches)
-    tgt_len, f_bucket = int(out["tgt_len"][0]), int(out["frame_bucket"])
-    wav = out["wav"]
-    log(f"[main] phonemes {len(PHONEMES)}, prompt {len(wav_in)} samples; tgt_len {tgt_len} "
-        f"frames, frame bucket {f_bucket}; wav {wav.shape[0]} samples, rms {np.sqrt(np.mean(wav ** 2)):.4f}, "
-        f"finite {bool(np.isfinite(wav).all())}")
-    log(f"[main] kernel launches in the main-path call: {json.dumps(launches)}")
-    padded_len = len(codec.pad_prompt_wav(wav_in)[0])
-    calls = main_path_calls(codec, padded_len, f_bucket)
-    expected = {k: sum(1 for c in calls if c[0] == k) for k in launches}
-    for name in launches:
-        if launches[name] == 0 or launches[name] != expected[name]:
-            raise AssertionError(f"{name}: {launches[name]} launches in the main path, "
-                                 f"expected {expected[name]}")
-    if wav.shape != (tgt_len * codec.hop,) or not np.isfinite(wav).all() or tgt_len <= 0:
-        raise AssertionError("main path output is not a finite wav of tgt_len * hop samples")
+    kwargs_a = {"phonemes": PHONEMES, "fused": False}
+    kwargs_b = {"text": TEXT}
+    log(f"[main B] text {TEXT!r}: {model_b._get_frontend()(TEXT)[0].shape[1]} phonemes")
+    run_a = drive("A", model, codec, wav_in, kwargs_a, kernels)
+    run_b = drive("B", model_b, codec_b, wav_in, kwargs_b, kernels)
+    for name in ("snake_filtered", "residual_unit"):
+        if run_a["launches"][name] == 0:
+            raise AssertionError(f"path A launched {name} no time")
+    n_k3 = run_b["launches"]["residual_stack"]
+    if not (run_b["launches"]["snake_filtered"] == 10 and n_k3 > 0
+            and run_b["launches"]["residual_unit"] == 3 * (8 - n_k3)):
+        raise AssertionError(f"path B launches {run_b['launches']}: expected K1 = 10, K3 > 0, "
+                             "K2 = 3 * (8 - K3)")
 
-    # warm calls: the host clock varies from call to call on a shared host,
-    # so take five and report each and their median
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        w0 = time.perf_counter()
-        out2 = model.sample(phonemes=PHONEMES, prompt_raw=wav_in, codec=codec,
-                            nsteps_durgen=64, nsteps_denoiser=64, seed=0)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - w0)
-        if not np.array_equal(out2["tgt_len"], out["tgt_len"]):
-            raise AssertionError("a warm call sampled another length from the same seed")
-    wall = float(np.median(walls))
-    audio_s = tgt_len * codec.hop / 16000
-    log(f"[main] warm calls: wall {', '.join(f'{1e3 * w:.1f}' for w in walls)} ms (host clock, each "
-        f"ends in synchronize); median {wall * 1e3:.1f} ms; audio {audio_s:.2f} s; median RTF "
-        f"{wall / audio_s:.4f}; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    breakdown("A", model, codec, wav_in, kwargs_a)
+    breakdown("B", model_b, codec_b, wav_in, kwargs_b)
 
-    breakdown(model, codec, wav_in)
-
-    # 4. a short utterance on the card against the same on the CPU
-    cpu_model = Flamed(cfg, params={"prior": model.prior.state_dict(),
-                                    "prob": model.prob.state_dict()}, device="cpu")
-    cpu_codec = FaCodec.from_pretrained(CODEC_DIR, device="cpu")
+    # 4. a short utterance on the card against the same on the CPU, per path
     nrng = np.random.RandomState(5)
-    short = dict(phonemes=PHONEMES[:10], prompt_raw=prompt_wav(1.0, seed=2),
-                 nsteps_durgen=4, nsteps_denoiser=4)
-    noise = {"dur": nrng.randn(1, 64).astype(np.float32), "sil": nrng.randn(1, 64).astype(np.float32)}
-    probe = model.sample(codec=codec, noise=noise, seed=0, **short)
-    noise["latents"] = nrng.randn(1, probe["frame_bucket"], 256).astype(np.float32)
-    g = model.sample(codec=codec, noise=noise, **short)
-    c = cpu_model.sample(codec=cpu_codec, noise=noise, **short)
+    short = dict(prompt_raw=prompt_wav(1.0, seed=2), nsteps_durgen=4, nsteps_denoiser=4)
+    noise = {"dur": nrng.randn(1, 64).astype(np.float32), "sil": nrng.randn(1, 64).astype(np.float32),
+             "latents": nrng.randn(1, 256, 256).astype(np.float32)}
+    params = {"prior": model.prior.state_dict(), "prob": model.prob.state_dict()}
+    cpu_model = Flamed(cfg, params=params, device="cpu")
+    cpu_codec = FaCodec.from_pretrained(CODEC_DIR, device="cpu")
+    g = model.sample(codec=codec, noise=noise, phonemes=PHONEMES[:10], fused=False, **short)
+    c = cpu_model.sample(codec=cpu_codec, noise=noise, phonemes=PHONEMES[:10], fused=False, **short)
     err = float(np.abs(g["wav"] - c["wav"]).max()) if g["wav"].shape == c["wav"].shape else math.inf
-    log(f"[reference] short utterance card vs CPU: tgt_len {g['tgt_len'][0]} vs {c['tgt_len'][0]}, "
-        f"wav max abs diff {err:.3e} (tol 1e-5: fp32, cuBLAS/cuDNN and the kernels vs CPU "
-        f"summation order and sinf)")
-    if not np.array_equal(g["tgt_len"], c["tgt_len"]) or not err <= 1e-5:
-        raise AssertionError("the card's short utterance disagrees with the CPU run")
+    tol = 1e-5 + 1.0 / 32767
+    log(f"[reference A] short utterance card vs CPU: tgt_len {g['tgt_len'][0]} vs {c['tgt_len'][0]}, "
+        f"wav max abs diff {err:.3e} (tol {tol:.3e}: fp32, cuBLAS/cuDNN and the kernels vs CPU "
+        f"summation order and sinf, 1e-5, then one step of the int16 PCM either side quantizes to)")
+    if not np.array_equal(g["tgt_len"], c["tgt_len"]) or not err <= tol:
+        raise AssertionError("the card's short utterance disagrees with the CPU run (path A)")
+
+    cpu_model.cast_inference_params()
+    cpu_codec.cast_inference_params()
+    cpu_codec.fuse_blocks = True
+    for m in (model_b, cpu_model):
+        m.sampler._ratio_history.clear()  # both take a first call's speculative bucket
+    g = model_b.sample(codec=codec_b, noise=noise, text="Good morning.", **short)
+    c = cpu_model.sample(codec=cpu_codec, noise=noise, text="Good morning.", **short)
+    n = int(g["tgt_len"][0])
+    lat_g, lat_c = g["latents"][0, :n].float().cpu().numpy(), c["latents"][0, :n].numpy()
+    rel = float(np.linalg.norm(lat_g - lat_c) / np.linalg.norm(lat_c))
+    # the decoder alone, on the card's latents: no discrete decision in between
+    timbre = torch.from_numpy(nrng.randn(1, 256).astype(np.float32))
+    wav_g = codec_b.decode(g["latents"], timbre.to(dev)).float().cpu().numpy()
+    wav_c = cpu_codec.decode(g["latents"].cpu(), timbre).float().numpy()
+    err, peak = float(np.abs(wav_g - wav_c).max()), float(np.abs(wav_c).max())
+    log(f"[reference B] short bf16 utterance card vs CPU: tgt_len {g['tgt_len'][0]} vs "
+        f"{c['tgt_len'][0]}, frame bucket {g['frame_bucket']} vs {c['frame_bucket']}, latents rel "
+        f"L2 diff {rel:.3e} (tol 0.05: the bf16 prompt encoders on the two devices round apart "
+        f"and may pick other RVQ codes for some frames); bf16 decoder on the same latents: wav "
+        f"max abs diff {err:.3e}, peak {peak:.3f} (tol 0.1 * peak, about 13 bf16 steps there: "
+        f"bf16 activations through 27 rounding stages, where one flipped rounding spreads "
+        f"through the next conv)")
+    if (not np.array_equal(g["tgt_len"], c["tgt_len"]) or g["frame_bucket"] != c["frame_bucket"]
+            or not rel <= 0.05 or not err <= 0.1 * peak or not np.isfinite(g["wav"]).all()):
+        raise AssertionError("the card's short bf16 utterance disagrees with the CPU run (path B)")
     del cpu_model, cpu_codec
+
+    # one forced overflow retry on path B: half a frame per phoneme cannot hold
+    # an utterance (a phoneme takes one frame at least)
+    ids = model_b._get_frontend()(TEXT)[0]
+    padded, n_frames = codec_b.pad_prompt_wav(wav_in)
+    sampler = model_b.sampler
+    buckets = sampler.frame_buckets
+    sampler.frame_buckets = [16] + buckets
+    try:
+        kernels.reset_launches()
+        o = sampler.sample(ids, np.array([ids.shape[1]]), None, None, None, dev, codec=codec_b,
+                           vocab_pad=model_b.vocab_size, nsteps_durgen=8, nsteps_denoiser=8,
+                           generator=torch.Generator(device=dev).manual_seed(0), fused=True,
+                           frames_per_phoneme_budget=0.5 * 16 / ids.shape[1],
+                           prompt_wav=padded[None], prompt_frames=np.array([n_frames]))
+    finally:
+        sampler.frame_buckets = buckets
+    tgt = int(o["tgt_len"][0])
+    log(f"[overflow B] speculative bucket 16 frames, tgt_len {tgt}, answered from bucket "
+        f"{o['frame_bucket']}; launches {json.dumps(kernels.launches)} (the prompt's encoder once, "
+        f"the decoder twice)")
+    if not (tgt > 16 and o["frame_bucket"] >= tgt and o["wav"].shape[1] == o["frame_bucket"] * 200
+            and np.isfinite(o["wav"]).all() and kernels.launches["snake_filtered"] == 15):
+        raise AssertionError("the forced overflow retry did not answer from a larger bucket")
 
     # 5. each main-path shape: the kernel against its plain version, then
     # both timed
-    per = {k: {} for k in launches}
-    for name, t, ch, d, p in calls:
-        key = (t, ch, d)
-        if key in per[name]:
-            per[name][key]["calls"] += 1
-            continue
-        x = rand(1, t, ch)
-        if name == "snake_filtered":
-            run = lambda: snake_filtered_cuda(x, p["alpha"], p["beta"])
-            plain = lambda: snake_filtered_reference(x, p["alpha"], p["beta"])
-        else:
-            run = lambda: residual_unit_cuda(x, p, d)
-            plain = lambda: residual_unit_reference(x, p, d)
-        compare(name, run(), plain(), f"main-path shape (1, {t}, {ch}) d={d}")
-        reps = max(3, min(50, int(2e8 // (t * ch * (1 + ch // 64)))))
-        k_ms, k_wall, p_ms = graph_ms(run, reps), time_ms(run, reps), time_ms(plain, reps)
-        b_ms, b_by = bound_ms(name, t, ch)
-        per[name][key] = {"T": t, "C": ch, "d": d, "calls": 1, "ms": round(k_ms, 4),
-                          "wall_ms": round(k_wall, 4), "plain_ms": round(p_ms, 4),
-                          "bound_ms": round(b_ms, 5), "bound_by": b_by}
-        log(f"[time] {name} (1, {t}, {ch}) d={d}: kernel {k_ms:.4f} ms (graph) / {k_wall:.4f} ms "
-            f"(per call), plain {p_ms:.4f} ms (per call), bound {b_ms:.5f} ms ({b_by})")
+    per = {}
+    for path, run, cd in (("A", run_a, codec), ("B", run_b, codec_b)):
+        dtype = cd.dec_params["stem"]["w"].dtype
+        for name, t, ch, d, p in run["calls"]:
+            rows = per.setdefault((name, DTYPE_NAMES[dtype], path), {})
+            if (t, ch, d) in rows:
+                rows[(t, ch, d)]["calls"] += 1
+                continue
+            x = rand(1, t, ch, dtype=dtype)
+            if name == "snake_filtered":
+                run_k = lambda: snake_filtered_cuda(x, p["alpha"], p["beta"])
+                plain = lambda: snake_filtered_reference(x, p["alpha"], p["beta"])
+            elif name == "residual_unit":
+                run_k = lambda: residual_unit_cuda(x, p, d)
+                plain = lambda: residual_unit_reference(x, p, d)
+            else:
+                run_k = lambda: residual_stack_cuda(x, p)
+                plain = lambda: residual_stack_reference(x, p)
+            compare(name, run_k(), plain(), f"path {path} shape (1, {t}, {ch}) d={d}")
+            work = t * ch * (1 + ch // 64) * (3 if name == "residual_stack" else 1)
+            reps = max(3, min(50, int(2e8 // work)))
+            k_ms, k_wall, p_ms = graph_ms(run_k, reps), time_ms(run_k, reps), time_ms(plain, reps)
+            b_ms, b_by = bound_ms(name, t, ch, dtype)
+            row = {"T": t, "C": ch, "d": d, "calls": 1, "ms": round(k_ms, 4),
+                   "wall_ms": round(k_wall, 4), "plain_ms": round(p_ms, 4),
+                   "bound_ms": round(b_ms, 5), "bound_by": b_by}
+            extra = ""
+            if name == "residual_stack":
+                row["three_unit_ms"] = round(graph_ms(lambda: three_units(x, p), reps), 4)
+                row["three_unit_wall_ms"] = round(time_ms(lambda: three_units(x, p), reps), 4)
+                extra = (f", three residual_unit launches {row['three_unit_ms']:.4f} ms (graph) / "
+                         f"{row['three_unit_wall_ms']:.4f} ms (per call)")
+            rows[(t, ch, d)] = row
+            log(f"[time] path {path} {name} {DTYPE_NAMES[dtype]} (1, {t}, {ch}) d={d}: kernel "
+                f"{k_ms:.4f} ms (graph) / {k_wall:.4f} ms (per call), plain {p_ms:.4f} ms (per call), "
+                f"bound {b_ms:.5f} ms ({b_by}){extra}")
     entries = []
-    for name, shapes in per.items():
+    for (name, dtype_name, path), shapes in per.items():
         rows = list(shapes.values())
         tot = {k: sum(r[k] * r["calls"] for r in rows)
                for k in ("ms", "wall_ms", "plain_ms", "bound_ms")}
         by_ops = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "operations")
+        run = run_a if path == "A" else run_b
         entries.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches[name], "max_abs_err": max_err[name],
+            "dtype": dtype_name, "path": path,
+            "launches": run["launches"][name], "max_abs_err": max_err[(name, dtype_name)],
             "ms": round(tot["ms"], 4), "plain_ms": round(tot["plain_ms"], 4),
             "bound_ms": round(tot["bound_ms"], 5),
             "wall_ms": round(tot["wall_ms"], 4),
             "bound_by": "operations" if by_ops * 2 >= tot["bound_ms"] else "bytes",
             "library_ms": None,
-            "note": "sums over one utterance's launches at the shapes below; ms is the "
-                    "wrapper's device time (CUDA graph replay), wall_ms and plain_ms per-call "
-                    "CUDA-event time including the host's launch cost",
+            "note": "sums over one utterance's launches on the named path at the shapes below; "
+                    "ms is the wrapper's device time (CUDA graph replay), wall_ms and plain_ms "
+                    "per-call CUDA-event time including the host's launch cost; library_ms is "
+                    "null because no single PyTorch call computes the function (the nearest, "
+                    "cuDNN convolutions, cover the convs only)",
             "shapes": rows,
         })
     log(json.dumps({"kernels": entries}))

@@ -7,7 +7,11 @@
   becomes (C, 1, K)), and ``embedding`` / ``scale`` become ``weight``.
 * Codec trees (encoder, decoder) already hold PyTorch layouts
   (conv (out, in, k), conv-transpose (in, out, k)); they keep their
-  nesting with every leaf a float32 tensor.
+  nesting with every leaf a float tensor.
+
+A leaf is a numpy array or a tensor.  A bfloat16 leaf (a bfloat16 tensor,
+or a numpy array of the ``bfloat16`` extension type that JAX arrays convert
+to) stays bfloat16 with the same bits; every other leaf becomes float32.
 """
 
 from __future__ import annotations
@@ -26,21 +30,33 @@ def _flax_state_dict(tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
         if isinstance(value, dict):
             out.update(_flax_state_dict(value, f"{prefix}{key}."))
             continue
-        v = np.asarray(value, dtype=np.float32)
+        v = _leaf(value)
         if key == "kernel":
-            v = v.T if v.ndim == 2 else v.transpose(2, 1, 0)
-        out[prefix + _RENAME.get(key, key)] = torch.from_numpy(np.array(v, order="C"))
+            v = v.t() if v.dim() == 2 else v.permute(2, 1, 0)
+        out[prefix + _RENAME.get(key, key)] = v.contiguous()
     return out
 
 
+def _leaf(value: Any) -> torch.Tensor:
+    """One array -> a float32 tensor, or a bfloat16 tensor of the same
+    bits where the array is bfloat16."""
+    if isinstance(value, torch.Tensor):
+        return value if value.dtype == torch.bfloat16 else value.float()
+    value = np.asarray(value)
+    if value.dtype.name == "bfloat16":  # numpy itself has no such type
+        bits = np.ascontiguousarray(value).view(np.uint16).astype(np.int32)
+        return torch.from_numpy(bits).to(torch.int16).view(torch.bfloat16)
+    return torch.from_numpy(np.array(value, dtype=np.float32))
+
+
 def codec_tree(tree: Any, device: Union[str, torch.device] = "cpu") -> Any:
-    """Nested dicts/lists of arrays -> the same of contiguous float32
+    """Nested dicts/lists of arrays -> the same of contiguous float
     tensors on ``device``."""
     if isinstance(tree, dict):
         return {k: codec_tree(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [codec_tree(v, device) for v in tree]
-    return torch.as_tensor(np.array(tree, dtype=np.float32)).to(device)
+    return _leaf(tree).contiguous().to(device)
 
 
 def params_from_jax(tree: Any) -> Any:

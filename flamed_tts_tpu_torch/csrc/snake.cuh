@@ -1,5 +1,6 @@
 // Alias-free SnakeBeta (2x kaiser-sinc upsample -> SnakeBeta -> 2x
-// decimation), shared by snake_filtered.cu and residual_unit.cu.
+// decimation), shared by snake_filtered.cu, residual_unit.cu and
+// residual_stack.cu.
 //
 // With f the 12 taps of kaiser_sinc_filter1d(0.25, 0.3, 12) and x the
 // (T, C) input, the reference chain is, per channel:
@@ -14,8 +15,15 @@
 // replicate pad on the interleaved signal).  Applying both clips exactly
 // makes every row right, the global edges included, so no host-side edge
 // patch is needed.
+//
+// The io type IO is float or __nv_bfloat16: values are read from and
+// written to memory as IO, all arithmetic is fp32, and a result is rounded
+// to IO once, where it is stored.  Every floating-point operation is
+// written as an explicit intrinsic or a single operation, so that the
+// same element gets the same bits in every kernel that includes this file.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #ifndef SNAKE_TAPS
@@ -33,22 +41,46 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename IO>
+__device__ __forceinline__ IO from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// a + b rounded to IO (for bf16: the bf16 add, one rounding).
+template <typename IO>
+__device__ __forceinline__ IO io_add(IO a, IO b) {
+  return from_f<IO>(__fadd_rn(to_f(a), to_f(b)));
+}
+
 // Reads row q (already in [0, T)) of a (T, C) array in device memory.
+template <typename IO>
 struct GlobalRows {
-  const float* p;
+  const IO* p;
   int C;
   __device__ __forceinline__ float operator()(int q, int c) const {
-    return p[(size_t)q * C + c];
+    return to_f(p[(size_t)q * C + c]);
   }
 };
 
 // Reads row q of a (T, C) signal held in shared memory from row q0 on.
+template <typename IO>
 struct SharedRows {
-  const float* p;
+  const IO* p;
   int C;
   int q0;
   __device__ __forceinline__ float operator()(int q, int c) const {
-    return p[(q - q0) * C + c];
+    return to_f(p[(q - q0) * C + c]);
   }
 };
 
@@ -65,20 +97,20 @@ __device__ __forceinline__ float snake_value(const Src& src, int i, int T,
     const int q = clampi(p + 2 + odd - k, 0, T - 1);
     u = fmaf(c_taps[2 * k + 1 - odd], src(q, c), u);
   }
-  u *= 2.f;
-  const float sn = sinf(u * alpha);
-  return u + inv_beta * (sn * sn);
+  u = __fmul_rn(u, 2.f);
+  const float sn = sinf(__fmul_rn(u, alpha));
+  return fmaf(inv_beta, __fmul_rn(sn, sn), u);
 }
 
 // Writes z rows [r0, r0 + n) for channels [c_begin, c_end) into
-// dst[(row - r0) * C + c].  Rows outside [0, T) are written as zero (the
-// zero padding of the conv that follows in a residual unit).  Uses the
-// whole block (blockDim.x a multiple of 32; lane = channel) and
+// dst[(row - r0) * C + c], rounded to IO.  Rows outside [0, T) are written
+// as zero (the zero padding of the conv that follows in a residual unit).
+// Uses the whole block (blockDim.x a multiple of 32; lane = channel) and
 // SNAKE_SCRATCH_FLOATS of shared scratch; ends on a barrier.
-template <class Src>
+template <class Src, typename IO>
 __device__ void snake_rows(const Src& src, int T, int C, int r0, int n,
                            int c_begin, int c_end, const float* log_alpha,
-                           const float* log_beta, float* dst, float* scr) {
+                           const float* log_beta, IO* dst, float* scr) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
@@ -88,7 +120,7 @@ __device__ void snake_rows(const Src& src, int T, int C, int r0, int n,
     float alpha = 0.f, inv_beta = 0.f;
     if (live) {
       alpha = expf(log_alpha[c]);
-      inv_beta = 1.f / (expf(log_beta[c]) + 1e-9f);
+      inv_beta = __fdiv_rn(1.f, __fadd_rn(expf(log_beta[c]), 1e-9f));
     }
     for (int m0 = 0; m0 < n; m0 += SNAKE_ROWS) {
       const int nr = min(SNAKE_ROWS, n - m0);
@@ -112,7 +144,7 @@ __device__ void snake_rows(const Src& src, int T, int C, int r0, int n,
               z = fmaf(c_taps[j], scr[(2 * m + j) * 32 + lane], z);
             }
           }
-          dst[(size_t)(m0 + m) * C + c] = z;
+          dst[(size_t)(m0 + m) * C + c] = from_f<IO>(z);
         }
       }
       __syncthreads();

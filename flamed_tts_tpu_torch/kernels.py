@@ -31,16 +31,22 @@ BUILD_DIR = os.path.join(
 )
 SOURCES = {
     "snake_filtered": ("snake_filtered.cu", "snake.cuh"),
-    "residual_unit": ("residual_unit.cu", "snake.cuh"),
+    "residual_unit": ("residual_unit.cu", "resunit.cuh", "snake.cuh"),
+    "residual_stack": ("residual_stack.cu", "resunit.cuh", "snake.cuh"),
 }
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "snake_filtered": {"snake_filtered_launch": [_P] * 4 + [_I] * 3 + [_P]},
+    "snake_filtered": {"snake_filtered_launch": [_P] * 4 + [_I] * 4 + [_P]},
     "residual_unit": {
-        "residual_unit_launch": [_P] * 10 + [_I] * 5 + [_P],
-        "residual_unit_smem_bytes": [_I] * 3,
+        "residual_unit_launch": [_P] * 3 + [_I] * 6 + [_P],
+        "residual_unit_smem_bytes": [_I] * 4,
+    },
+    "residual_stack": {
+        "residual_stack_launch": [_P] * 3 + [_I] * 8 + [_P],
+        "residual_stack_smem_bytes": [_I] * 6,
     },
 }
+IO_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' io types
 
 launches: Dict[str, int] = {name: 0 for name in SOURCES}
 build_log: Dict[str, str] = {}
@@ -164,12 +170,21 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def require(t: torch.Tensor, what: str, shape=None) -> None:
-    """The wrappers' input check: CUDA, float32, contiguous, shape."""
+def pointers(tensors) -> ctypes.Array:
+    """A host array of the tensors' device pointers, for a launch function
+    that takes ``const void* const*``."""
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def require(t: torch.Tensor, what: str, shape=None, dtype=None) -> None:
+    """The wrappers' input check: CUDA, float32 or bfloat16 (exactly
+    ``dtype`` where one is given), contiguous, shape."""
     if not t.is_cuda:
         raise ValueError(f"{what} must be a CUDA tensor")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{what} must be float32, got {t.dtype}")
+    if t.dtype not in IO_DTYPES:
+        raise ValueError(f"{what} must be float32 or bfloat16, got {t.dtype}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):

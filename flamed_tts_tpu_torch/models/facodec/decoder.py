@@ -16,7 +16,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import Tensor
 
-from flamed_tts_tpu_torch.models.facodec.quantize import rvq_encode
+from flamed_tts_tpu_torch.models.facodec.quantize import linear, rvq_decode, rvq_encode
 from flamed_tts_tpu_torch.models.facodec.timbre import timbre_encoder_forward
 from flamed_tts_tpu_torch.ops.conv1d import conv1d, conv_transpose1d
 from flamed_tts_tpu_torch.ops.resunit import residual_stack
@@ -33,24 +33,35 @@ def analyze(params: Dict, latents: Tensor, pad_mask: Optional[Tensor] = None) ->
     return codes, timbre_encoder_forward(params["timbre_encoder"], latents, pad_mask)
 
 
-def decoder_block(x: Tensor, p: Dict, stride: int) -> Tensor:
+def vq2emb(params: Dict, codes: Tensor, use_residual: bool = True) -> Tensor:
+    """codes (6, B, T) -> summed embeddings (B, T, 256)."""
+    out = rvq_decode(codes[0:1], params["quantizers"][0])
+    out = out + rvq_decode(codes[1:3], params["quantizers"][1])
+    if use_residual:
+        out = out + rvq_decode(codes[3:6], params["quantizers"][2])
+    return out
+
+
+def decoder_block(x: Tensor, p: Dict, stride: int, fuse_blocks: bool = False) -> Tensor:
     x = snake_filtered(x, p["act"]["alpha"], p["act"]["beta"])
     x = conv_transpose1d(x, p["up"]["w"], p["up"]["b"], stride=stride,
                          padding=stride // 2 + stride % 2, output_padding=stride % 2)
-    return residual_stack(x, p["res"])
+    return residual_stack(x, p["res"], fuse=fuse_blocks)
 
 
 def synthesize(params: Dict, latents: Tensor, timbre: Tensor,
-               up_ratios: Sequence[int] = (5, 5, 4, 2)) -> Tensor:
-    """latents (B, T, 256) + timbre (B, 256) -> wav (B, T * 200, 1)."""
-    style = timbre @ params["timbre_linear"]["w"].t() + params["timbre_linear"]["b"]
+               up_ratios: Sequence[int] = (5, 5, 4, 2), fuse_blocks: bool = False) -> Tensor:
+    """latents (B, T, 256) + timbre (B, 256) -> wav (B, T * 200, 1), in the
+    type of the parameters.  ``fuse_blocks`` runs a block's three residual
+    units as one K3 launch where ``ops.resunit.stack_tile`` admits it."""
+    style = linear(timbre, params["timbre_linear"])
     gamma, beta = style[:, None, :].chunk(2, dim=-1)
     mean = latents.mean(-1, keepdim=True)
     var = ((latents - mean) ** 2).mean(-1, keepdim=True)
     x = (latents - mean) / torch.sqrt(var + 1e-5) * gamma + beta
     x = conv1d(x, params["stem"]["w"], params["stem"]["b"], padding=3)
     for block, stride in zip(params["blocks"], up_ratios):
-        x = decoder_block(x, block, stride)
+        x = decoder_block(x, block, stride, fuse_blocks)
     x = snake_filtered(x, params["final_act"]["alpha"], params["final_act"]["beta"])
     x = conv1d(x, params["out"]["w"], params["out"]["b"], padding=3)
     return torch.tanh(x)

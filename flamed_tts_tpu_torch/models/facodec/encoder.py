@@ -3,8 +3,9 @@
 Conv stem (k7) -> 4 encoder blocks (3 dilated residual units, Snake,
 strided conv doubling the channels) -> Snake -> output conv.  Functions
 over the converted param tree (nested dicts of tensors, torch conv
-layouts).  Every Snake is K1 (ops/snake.py) and every residual unit K2
-(ops/resunit.py) on the card.
+layouts).  On the card every Snake is K1 (ops/snake.py) and every block's
+residual units are K2, or one K3 launch with ``fuse_blocks``
+(ops/resunit.py).
 """
 
 from __future__ import annotations
@@ -18,17 +19,20 @@ from flamed_tts_tpu_torch.ops.resunit import residual_stack
 from flamed_tts_tpu_torch.ops.snake import snake_filtered
 
 
-def encoder_block(x: Tensor, p: Dict, stride: int) -> Tensor:
-    x = residual_stack(x, p["res"])
+def encoder_block(x: Tensor, p: Dict, stride: int, fuse_blocks: bool = False) -> Tensor:
+    x = residual_stack(x, p["res"], fuse=fuse_blocks)
     x = snake_filtered(x, p["act"]["alpha"], p["act"]["beta"])
     return conv1d(x, p["down"]["w"], p["down"]["b"], stride=stride,
                   padding=stride // 2 + stride % 2)
 
 
-def encoder_forward(params: Dict, wav: Tensor, up_ratios: Sequence[int] = (2, 4, 5, 5)) -> Tensor:
-    """(B, T, 1) float32 -> (B, T // hop, out_channels)."""
+def encoder_forward(params: Dict, wav: Tensor, up_ratios: Sequence[int] = (2, 4, 5, 5),
+                    fuse_blocks: bool = False) -> Tensor:
+    """(B, T, 1) -> (B, T // hop, out_channels), in the type of the
+    parameters.  ``fuse_blocks`` runs a block's three residual units as one
+    K3 launch where ``ops.resunit.stack_tile`` admits it."""
     x = conv1d(wav, params["stem"]["w"], params["stem"]["b"], padding=3)
     for block, stride in zip(params["blocks"], up_ratios):
-        x = encoder_block(x, block, stride)
+        x = encoder_block(x, block, stride, fuse_blocks)
     x = snake_filtered(x, params["final_act"]["alpha"], params["final_act"]["beta"])
     return conv1d(x, params["out"]["w"], params["out"]["b"], padding=1)

@@ -14,8 +14,12 @@ import torch
 from torch import Tensor
 
 
-def _linear(x: Tensor, p: Dict) -> Tensor:
-    return x @ p["w"].t() + p["b"]
+def linear(x: Tensor, p: Dict) -> Tensor:
+    """x @ w.T + b with w (out, in).  Operands of unlike types are promoted
+    to the wider one first (float32 activations against bfloat16 weights
+    give float32), as the JAX package's ``@`` does."""
+    dtype = torch.promote_types(x.dtype, p["w"].dtype)
+    return x.to(dtype) @ p["w"].t().to(dtype) + p["b"]
 
 
 def _l2_normalize(x: Tensor) -> Tensor:
@@ -24,10 +28,10 @@ def _l2_normalize(x: Tensor) -> Tensor:
 
 def fvq_encode(x: Tensor, p: Dict) -> Tuple[Tensor, Tensor]:
     """(B, T, D) -> (codes (B, T) int32, quantized (B, T, D))."""
-    z_n = _l2_normalize(_linear(x, p["in_proj"]))
+    z_n = _l2_normalize(linear(x, p["in_proj"]))
     c_n = _l2_normalize(p["codebook"])
     codes = torch.argmax(z_n @ c_n.t(), dim=-1)
-    z_q = _linear(p["codebook"][codes], p["out_proj"])
+    z_q = linear(p["codebook"][codes], p["out_proj"])
     return codes.to(torch.int32), z_q
 
 
@@ -42,3 +46,12 @@ def rvq_encode(x: Tensor, layers: List[Dict]) -> Tuple[Tensor, Tensor]:
         quantized_sum = quantized_sum + q
         codes.append(c)
     return torch.stack(codes, dim=0), quantized_sum
+
+
+def rvq_decode(codes: Tensor, layers: List[Dict]) -> Tensor:
+    """(n_layers, B, T) codes -> summed embeddings (B, T, D)."""
+    out = None
+    for idx, layer in enumerate(layers):
+        q = linear(layer["codebook"][codes[idx].long()], layer["out_proj"])
+        out = q if out is None else out + q
+    return out

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor
 
+from flamed_tts_tpu_torch.models.facodec.quantize import linear
 from flamed_tts_tpu_torch.ops.conv1d import conv1d
 
 _NEG_INF = -1e9
@@ -41,19 +42,22 @@ def _layer_norm(x: Tensor, p: Dict, eps: float = 1e-5) -> Tensor:
 def _mha(x: Tensor, p: Dict, n_head: int, pad_mask: Optional[Tensor]) -> Tensor:
     """torch.nn.MultiheadAttention math with packed qkv projections."""
     b, l, d = x.shape
-    q, k, v = (x @ p["in_proj_w"].t() + p["in_proj_b"]).split(d, dim=-1)
+    q, k, v = linear(x, {"w": p["in_proj_w"], "b": p["in_proj_b"]}).split(d, dim=-1)
     hd = d // n_head
     q, k, v = (t.reshape(b, l, n_head, hd).transpose(1, 2) for t in (q, k, v))
     scores = q @ k.transpose(-1, -2) / np.sqrt(hd)
     if pad_mask is not None:
         scores = scores.masked_fill(pad_mask[:, None, None, :], _NEG_INF)
     out = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(b, l, d)
-    return out @ p["out_proj_w"].t() + p["out_proj_b"]
+    return linear(out, {"w": p["out_proj_w"], "b": p["out_proj_b"]})
 
 
 def timbre_encoder_forward(params: Dict, x: Tensor, pad_mask: Optional[Tensor] = None,
                            n_head: int = 4, conv_kernel: int = 5) -> Tensor:
-    """(B, T, 256) latents -> (B, 256) speaker embedding."""
+    """(B, T, 256) latents -> (B, 256) speaker embedding.  The positional
+    bias is float32, so with bfloat16 parameters the residual stream is
+    float32 and only the k=5 conv and the linear after it run in bfloat16
+    (``conv1d`` casts to the weight's type), as in the JAX package."""
     x = x + batch_constant_positional_bias(x.shape[0], x.shape[-1], x.device)
     for layer in params["layers"]:
         x = x + _mha(_layer_norm(x, layer["ln1"]), layer["attn"], n_head, pad_mask)
@@ -62,7 +66,7 @@ def timbre_encoder_forward(params: Dict, x: Tensor, pad_mask: Optional[Tensor] =
             # the k=5 conv must see zeros at the true boundary
             h = h.masked_fill(pad_mask[:, :, None], 0.0)
         h = F.relu(conv1d(h, layer["ffn1"]["w"], layer["ffn1"]["b"], padding=conv_kernel // 2))
-        x = x + (h @ layer["ffn2"]["w"].t() + layer["ffn2"]["b"])
+        x = x + linear(h, layer["ffn2"])
     x = _layer_norm(x, params["last_ln"])
     if pad_mask is not None:
         valid = (~pad_mask)[:, :, None].to(x.dtype)

@@ -1,9 +1,12 @@
 """Flamed: the prior and prob generators on one device, and zero-shot
 sampling from phonemes and a prompt wav.
 
-``Flamed(cfg, params, device).sample(phonemes=..., prompt_raw=wav,
-codec=FaCodec)`` encodes the prompt (``FaCodec.encode_prompt``), runs the
-staged bucketed sampler and synthesizes the wav.  ``params`` is
+``Flamed(cfg, params, device).sample(text=... | phonemes=...,
+prompt_raw=wav | prompt_processed=codes + timbre=..., codec=FaCodec)`` runs
+the text frontend, the bucketed sampler (the fused path by default, with
+the prompt analysed on the device in the same queue; ``fused=False`` for
+the staged path after ``FaCodec.encode_prompt``) and synthesizes the wav;
+``sample_batch`` is the same for a batch of phoneme rows.  ``params`` is
 ``{"prior": state_dict, "prob": state_dict}`` (``convert.params_from_jax``
 makes them from JAX trees); without it ``init_params`` draws random
 weights.
@@ -12,12 +15,14 @@ weights.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Union
+import time
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from flamed_tts_tpu_torch.convert import params_from_jax
 from flamed_tts_tpu_torch.device import resolve_device
 from flamed_tts_tpu_torch.models.prior.prior_generator import PriorGenerator
 from flamed_tts_tpu_torch.models.prob.prob_generator import ProbGenerator
@@ -27,7 +32,10 @@ from flamed_tts_tpu_torch.runtime.buckets import (
     DEFAULT_PROMPT_BUCKETS,
     bucket_list,
 )
+from flamed_tts_tpu_torch.runtime.pytree_io import load_pytree_npz
 from flamed_tts_tpu_torch.runtime.sampler import BucketedSampler
+from flamed_tts_tpu_torch.text.frontend import EnglishFrontend
+from flamed_tts_tpu_torch.utils.audio import load_wav
 
 
 def truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
@@ -87,6 +95,7 @@ class Flamed:
             frame_buckets=bucket_list(data.get("frame_buckets"), DEFAULT_FRAME_BUCKETS),
             prompt_buckets=bucket_list(data.get("prompt_buckets"), DEFAULT_PROMPT_BUCKETS),
         )
+        self.frontend: Optional[EnglishFrontend] = None
 
     def init_params(self, generator: torch.Generator) -> Dict:
         """Random {"prior", "prob"} state dicts (CPU generator)."""
@@ -99,34 +108,145 @@ class Flamed:
     def num_params(self) -> int:
         return sum(p.numel() for m in (self.prior, self.prob) for p in m.parameters())
 
-    @torch.no_grad()
-    def sample(self, phonemes, prompt_raw: np.ndarray, codec,
-               temp_durgen: float = 0.3, temp_denoiser: float = 0.3,
-               nsteps_durgen: int = 64, nsteps_denoiser: int = 64,
-               noise: Optional[Dict] = None, seed: Optional[int] = None) -> Dict:
-        """Single-utterance zero-shot synthesis from phoneme ids and a prompt
-        wav (``prompt_raw``, 16 kHz float), analysed by ``codec``.
+    def cast_inference_params(self, dtype: torch.dtype = torch.bfloat16) -> None:
+        """Round the prior's and the denoiser's float parameters to ``dtype``.
 
-        Returns {"wav" (n,) float32 numpy, n = tgt_len * hop; "latents"
-        (1, F, 256); "tgt_len" (1,); "frame_bucket"}.  Noise not
-        given in ``noise`` is drawn from a generator seeded with ``seed``.
-        """
-        ids = np.asarray(phonemes, dtype=np.int64).reshape(1, -1)
-        codes, timbre = codec.encode_prompt(np.asarray(prompt_raw, dtype=np.float32))
-        prompts = np.asarray(codes, dtype=np.int64)[None]
+        As in the JAX package the activations and the accumulation stay
+        float32 (a float32 input against a bfloat16 parameter is promoted
+        to float32 there), so only the stored values change.  Here they are
+        kept in float32 storage after the rounding: the arithmetic is then
+        the same as before with no upcast in any call, and the weights take
+        the memory and the traffic of float32 ones."""
+        for module in (self.prior, self.prob):
+            for p in module.parameters():
+                p.data = p.data.to(dtype).to(p.dtype)
+
+    @classmethod
+    def from_pretrained(cls, cfg: Dict, ckpt_path: str, **kwargs) -> "Flamed":
+        """Load a converted .npz checkpoint ({"prior", "prob"} flax trees,
+        the JAX package's format)."""
+        if not ckpt_path.endswith(".npz"):
+            raise ValueError(f"expected a converted .npz checkpoint, got {ckpt_path}")
+        tree = load_pytree_npz(ckpt_path)
+        return cls(cfg, params={k: params_from_jax(tree[k]) for k in ("prior", "prob")}, **kwargs)
+
+    def _get_frontend(self, lexicon_path=None, cleaners=("english_cleaners",)):
+        if self.frontend is None:
+            self.frontend = EnglishFrontend(lexicon_path=lexicon_path, cleaners=cleaners)
+        return self.frontend
+
+    def _generator(self, seed: Optional[int]) -> torch.Generator:
         generator = torch.Generator(device=self.device)
         generator.manual_seed(int(np.random.randint(0, 2 ** 31 - 1)) if seed is None else seed)
-        out = self.sampler.sample(
-            ids, np.array([ids.shape[1]]), prompts, np.array([prompts.shape[-1]]),
-            np.asarray(timbre, dtype=np.float32).reshape(1, -1), self.device,
+        return generator
+
+    def sample(self, text: Optional[str] = None, phonemes=None,
+               prompt_raw: Union[str, np.ndarray, None] = None,
+               prompt_processed: Optional[np.ndarray] = None,
+               timbre: Optional[np.ndarray] = None, sr: int = 16000, codec=None,
+               temp_durgen: float = 0.3, temp_denoiser: float = 0.3,
+               nsteps_durgen: int = 64, nsteps_denoiser: int = 64,
+               lexicon_path: Optional[str] = None,
+               cleaners: Sequence[str] = ("english_cleaners",),
+               noise: Optional[Dict] = None, seed: Optional[int] = None,
+               fused: bool = True) -> Dict:
+        """Single-utterance zero-shot synthesis.  Exactly one of (``text``,
+        ``phonemes``) and one of (``prompt_raw``: a wav path or a 16 kHz
+        float array, ``prompt_processed`` (n_q, P) codes + ``timbre``) must
+        be given.
+
+        With ``fused`` (the default, as in the JAX package) the utterance
+        goes through the sampler's fused path, a raw prompt being analysed
+        on the device in the same queue; ``fused=False`` takes the staged
+        path after ``codec.encode_prompt``.
+
+        Returns {"time"; "latents" (1, F, 256); "tgt_len" (1,);
+        "frame_bucket"} and with a codec "wav" (n,) float32 numpy,
+        n = tgt_len * hop.  Noise not given in ``noise`` is drawn from a
+        generator seeded with ``seed``.
+        """
+        if (text is None) == (phonemes is None):
+            raise ValueError("`text` and `phonemes` are mutually exclusive: only one should "
+                             "be provided, and the other must be None!")
+        if (prompt_raw is None) == (prompt_processed is None):
+            raise ValueError("`prompt_raw` and `prompt_processed` are mutually exclusive: "
+                             "only one should be provided, and the other must be None!")
+        if prompt_processed is not None and timbre is None:
+            raise ValueError("`timbre` must be provided along with `prompt_processed`!")
+        if prompt_raw is not None and codec is None:
+            raise ValueError("`codec` must be provided with `prompt_raw`")
+        start_time = time.time()
+
+        if text is not None:
+            ids, _, _ = self._get_frontend(lexicon_path, cleaners)(text)
+        else:
+            ids = np.asarray(phonemes, dtype=np.int64)
+            if ids.ndim == 1:
+                ids = ids[None, :]
+
+        prompt_wav = prompt_frames = prompts = timbres = None
+        if prompt_raw is not None:
+            if isinstance(prompt_raw, str):
+                prompt_raw = load_wav(prompt_raw, sr=sr)
+            prompt_raw = np.asarray(prompt_raw, dtype=np.float32)
+            if fused:
+                padded, n_frames = codec.pad_prompt_wav(prompt_raw)
+                prompt_wav = padded[None, :]
+                prompt_frames = np.asarray([n_frames], dtype=np.int64)
+            else:
+                codes, timbre = codec.encode_prompt(prompt_raw)
+                prompt_processed = codes
+        if prompt_wav is None:
+            prompts = np.asarray(prompt_processed, dtype=np.int64)
+            if prompts.ndim == 2:
+                prompts = prompts[None, :, :]
+            timbres = np.asarray(timbre, dtype=np.float32)
+            if timbres.ndim == 1:
+                timbres = timbres[None, :]
+
+        outputs = self.sample_batch(
+            phonemes=ids, src_lens=np.full((ids.shape[0],), ids.shape[-1], dtype=np.int64),
+            prompts=prompts, timbres=timbres, prompt_wav=prompt_wav, prompt_frames=prompt_frames,
+            codec=codec, temp_durgen=temp_durgen, temp_denoiser=temp_denoiser,
             nsteps_durgen=nsteps_durgen, nsteps_denoiser=nsteps_denoiser,
+            noise=noise, seed=seed, fused=fused)
+
+        result = {"time": time.time() - start_time}
+        if "wav" in outputs:
+            n = int(outputs["tgt_len"][0]) * codec.hop
+            result["wav"] = outputs["wav"][0, :n, 0]
+        result.update({k: outputs[k] for k in ("latents", "tgt_len", "frame_bucket")})
+        return result
+
+    def sample_batch(self, phonemes: np.ndarray, src_lens: np.ndarray,
+                     prompts: Optional[np.ndarray] = None, timbres: Optional[np.ndarray] = None,
+                     prompt_lens: Optional[np.ndarray] = None,
+                     prompt_wav: Optional[np.ndarray] = None,
+                     prompt_frames: Optional[np.ndarray] = None, codec=None,
+                     temp_durgen: float = 0.3, temp_denoiser: float = 0.3,
+                     nsteps_durgen: int = 64, nsteps_denoiser: int = 64,
+                     noise: Optional[Dict] = None, seed: Optional[int] = None,
+                     fused: bool = True) -> Dict:
+        """Batched sampling: phonemes (B, L) + src_lens, and either prompts
+        (B, n_q, P) + timbres (B, 256) (+ prompt_lens) or prompt_wav (B, T)
+        + prompt_frames.  Arrays are channel-last: ``latents`` (B, F, 256),
+        ``prior_logits`` (B, n_q, F, V + 1).  With a codec the wav is
+        synthesized in the same call: (B, F * hop, 1) float32 numpy."""
+        start_time = time.time()
+        if prompt_wav is None and prompts is None:
+            raise ValueError("provide either prompts(+timbres) or prompt_wav")
+        if prompt_wav is None and prompt_lens is None:
+            prompt_lens = np.full((prompts.shape[0],), prompts.shape[-1], dtype=np.int64)
+        out = self.sampler.sample(
+            np.asarray(phonemes), np.asarray(src_lens),
+            None if prompts is None else np.asarray(prompts),
+            None if prompt_lens is None else np.asarray(prompt_lens),
+            None if timbres is None else np.asarray(timbres, dtype=np.float32),
+            self.device, nsteps_durgen=nsteps_durgen, nsteps_denoiser=nsteps_denoiser,
             temp_durgen=temp_durgen, temp_denoiser=temp_denoiser, vocab_pad=self.vocab_size,
-            codec=codec, noise=noise, generator=generator,
-        )
-        n = int(out["tgt_len"][0]) * codec.hop
-        return {
-            "wav": out["wav"][0, :n, 0].float().cpu().numpy(),
-            "latents": out["latents"],
-            "tgt_len": out["tgt_len"],
-            "frame_bucket": out["frame_bucket"],
-        }
+            codec=codec, noise=noise, generator=self._generator(seed), fused=fused,
+            prompt_wav=prompt_wav, prompt_frames=prompt_frames)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        out["time"] = time.time() - start_time
+        return out

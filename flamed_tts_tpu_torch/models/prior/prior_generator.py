@@ -18,10 +18,11 @@ from flamed_tts_tpu_torch.models.prior.pva import ProbabilisticModule
 from flamed_tts_tpu_torch.ops.embeddings import sinusoid_position_table
 from flamed_tts_tpu_torch.ops.fft_block import FFTBlock
 from flamed_tts_tpu_torch.ops.masking import apply_mask
+from flamed_tts_tpu_torch.text.symbols import symbols
 
-# Size of the phoneme symbol table (pad, special, punctuation, letters,
-# ARPAbet, pinyin, silences); the embedding has N_SYMBOLS + 1 rows.
-N_SYMBOLS = 360
+# Size of the phoneme symbol table (text/symbols.py); the embedding has
+# N_SYMBOLS + 1 rows.
+N_SYMBOLS = len(symbols)
 
 
 class FFTStack(nn.Module):

@@ -1,6 +1,8 @@
 """1-D convolutions over channel-last (B, L, C) tensors, torch weight
 layouts: conv1d (out, in/groups, k), conv_transpose1d (in, out/groups, k).
-Outputs are contiguous (B, L, C)."""
+Outputs are contiguous (B, L, C).  The parameter type is the precision
+knob (``cast_inference_params``): an input of another type is cast to the
+weight's, so a bfloat16 codec accepts float32 inputs."""
 
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ def conv1d(
     dilation: int = 1,
     groups: int = 1,
 ) -> torch.Tensor:
+    if x.dtype != weight.dtype:
+        x = x.to(weight.dtype)
     out = F.conv1d(x.transpose(1, 2), weight, bias, stride=stride, padding=padding,
                    dilation=dilation, groups=groups)
     return out.transpose(1, 2).contiguous()
@@ -33,6 +37,8 @@ def conv_transpose1d(
     output_padding: int = 0,
     groups: int = 1,
 ) -> torch.Tensor:
+    if x.dtype != weight.dtype:
+        x = x.to(weight.dtype)
     out = F.conv_transpose1d(
         x.transpose(1, 2), weight, bias, stride=stride, padding=padding,
         output_padding=output_padding, groups=groups,

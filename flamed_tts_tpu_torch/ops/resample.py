@@ -87,6 +87,9 @@ def downsample1d(x: torch.Tensor, ratio: int = 2) -> torch.Tensor:
 
 
 def snake_filtered_reference(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """The literal up -> snake -> down chain; alpha/beta are log-scale."""
-    y = snake_beta(upsample1d(x, 2), alpha, beta)
-    return downsample1d(y, 2).contiguous()
+    """The literal up -> snake -> down chain; alpha/beta are log-scale.
+    As in the K1 kernel a bfloat16 ``x`` is upcast, the arithmetic is
+    float32 and the result is rounded to bfloat16 once."""
+    work = torch.promote_types(x.dtype, torch.float32)
+    y = snake_beta(upsample1d(x.to(work), 2), alpha.to(work), beta.to(work))
+    return downsample1d(y, 2).contiguous().to(x.dtype)

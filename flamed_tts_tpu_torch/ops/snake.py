@@ -15,11 +15,13 @@ from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
 
 
 def snake_filtered_cuda(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torch.Tensor) -> torch.Tensor:
-    """x (B, T, C) float32 on the card; log_alpha, log_beta (C,)."""
+    """x (B, T, C) float32 or bfloat16 on the card; log_alpha, log_beta
+    (C,), read as float32 (a bfloat16 pair is upcast first)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
     b, t, c = x.shape
     kernels.require(x, "x")
+    log_alpha, log_beta = log_alpha.float(), log_beta.float()
     kernels.require(log_alpha, "log_alpha", (c,))
     kernels.require(log_beta, "log_beta", (c,))
     out = torch.empty_like(x)
@@ -27,7 +29,7 @@ def snake_filtered_cuda(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torc
         return out
     fn = kernels.library("snake_filtered").snake_filtered_launch
     err = fn(x.data_ptr(), log_alpha.data_ptr(), log_beta.data_ptr(), out.data_ptr(),
-             b, t, c, kernels.stream_handle(x))
+             b, t, c, int(x.dtype == torch.bfloat16), kernels.stream_handle(x))
     kernels.check(err, "snake_filtered")
     kernels.launches["snake_filtered"] += 1
     return out

@@ -1,15 +1,30 @@
-"""Bucketed two-stage sampling (the JAX package's staged path).
+"""Bucketed sampling: the JAX package's staged and fused paths.
 
+Staged (``fused=False``):
   stage 1 (phoneme bucket L): encode + PVA Euler loop -> integer
       durations and the target length;
   the host reads the target length and picks the tightest frame bucket F;
   stage 2 (L, F, prompt bucket P): length regulation -> per-quantizer
       decoders -> denoiser Euler loop -> latents -> codec synthesis.
 
+Fused (``fused=True``): the same stages queued on the device back to back
+at a speculative frame bucket (the phoneme count times a frames-per-phoneme
+budget learnt from earlier calls), with no host read between the duration
+sampler and the denoiser; one transfer at the end brings the raw target
+length, the clipped one, the mask and the wav, and where the target length
+overflowed the bucket, the stages after the duration sampler run once more
+at the bucket it needs.  With
+``prompt_wav`` the prompt's encode + analyze runs on the device in the same
+queue (the wav goes up as int16 PCM), so the whole utterance is one upload,
+one queue of work and one download.
+
 Inputs are padded to the same buckets as in the JAX package, so for the
 same noise the outputs are the same.  Noise is drawn from ``generator``
 unless given in ``noise`` ({"dur", "sil": (B, L), "latents": (B, F, 256)},
-standard normal, at the bucket shapes).
+standard normal, at the bucket shapes; in the fused path F is the
+speculative bucket, or the retry's bucket after an overflow).  With a
+codec the wav is quantized to int16 PCM on the device and comes back as
+float32 / 32767.
 """
 
 from __future__ import annotations
@@ -20,11 +35,18 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from flamed_tts_tpu_torch.models.facodec.decoder import analyze
+from flamed_tts_tpu_torch.models.facodec.encoder import encoder_forward
 from flamed_tts_tpu_torch.models.prior.sampling import pva_sample
 from flamed_tts_tpu_torch.models.prob.prob_generator import prob_sample
 from flamed_tts_tpu_torch.ops.length_regulator import length_regulate
 from flamed_tts_tpu_torch.ops.masking import mask_from_lengths
 from flamed_tts_tpu_torch.runtime.buckets import pick_bucket
+
+PCM_SCALE = 32767.0
+FIRST_FRAMES_PER_PHONEME = 9.0  # the budget before any call has been observed
+MIN_FRAMES_PER_PHONEME = 7.0    # floor under the learnt budget
+RATIO_HISTORY = 256             # observed ratios kept
 
 
 def _noise(noise: Optional[Dict], key: str, shape, device, generator) -> torch.Tensor:
@@ -37,6 +59,11 @@ def _noise(noise: Optional[Dict], key: str, shape, device, generator) -> torch.T
     return given
 
 
+def pcm16(wav: torch.Tensor) -> torch.Tensor:
+    """Float wav -> int16 PCM, the quantization a 16-bit WAV file applies."""
+    return torch.round(torch.clamp(wav.float(), -1.0, 1.0) * PCM_SCALE).to(torch.int16)
+
+
 class BucketedSampler:
     def __init__(self, prior, prob, phoneme_buckets: Sequence[int],
                  frame_buckets: Sequence[int], prompt_buckets: Sequence[int]):
@@ -45,64 +72,191 @@ class BucketedSampler:
         self.phoneme_buckets = list(phoneme_buckets)
         self.frame_buckets = list(frame_buckets)
         self.prompt_buckets = list(prompt_buckets)
+        # observed frames per phoneme, for the fused path's speculative bucket
+        self._ratio_history: list = []
+
+    # --- the stages, all on the device -----------------------------------
+
+    def _stage1(self, phonemes, src_lens, noise, generator, nfe, temperature):
+        b, l_bucket = phonemes.shape
+        src_mask = mask_from_lengths(src_lens, l_bucket)
+        enc_out = self.prior.encode(phonemes, src_mask)
+        phone_dur, sil_dur = pva_sample(
+            self.prior, enc_out, src_mask,
+            _noise(noise, "dur", (b, l_bucket), phonemes.device, generator),
+            _noise(noise, "sil", (b, l_bucket), phonemes.device, generator),
+            nfe, temperature)
+        valid = (~src_mask).float()
+        tgt_len = ((torch.clamp(phone_dur, min=1.0) * valid).sum(1)
+                   + (sil_dur * valid).sum(1)).to(torch.int64)
+        return enc_out, phone_dur, sil_dur, tgt_len
+
+    def _stage2(self, enc_out, phone_dur, sil_dur, src_lens, prompts, prompt_lens, f_bucket,
+                timbres, noise, generator, nfe, temperature, codec):
+        lr_out, tgt_len = length_regulate(enc_out, phone_dur, sil_dur, src_lens, f_bucket)
+        tgt_mask = mask_from_lengths(tgt_len, f_bucket)
+        hiddens, logits = self.prior.decode(lr_out, tgt_mask, prompts, prompt_lens)
+        latents = prob_sample(
+            self.prob, hiddens, timbres, tgt_mask,
+            _noise(noise, "latents", (enc_out.shape[0], f_bucket, self.prob.target_dim),
+                   enc_out.device, generator),
+            nfe, temperature)
+        wav = None
+        if codec is not None:
+            wav = pcm16(codec.decode(latents, timbres.to(latents.dtype)))
+        return latents, hiddens, logits, tgt_len, tgt_mask, wav
+
+    def _analyze_prompt(self, codec, wav, wav_frames, p_bucket, vocab_pad):
+        """Prompt audio (B, T, 1) int16 PCM (or float) + true frame counts
+        -> (codes (B, n_q, p_bucket) with ``vocab_pad`` past the true
+        length, prompt_lens, timbres float32), all on the device."""
+        if not wav.is_floating_point():
+            wav = wav.to(torch.float32) * (1.0 / PCM_SCALE)
+        n_frames_total = wav.shape[1] // codec.hop
+        # a prompt longer than the largest seconds bucket arrives cut short
+        wav_frames = torch.clamp(wav_frames, max=n_frames_total)
+        pad_mask = mask_from_lengths(wav_frames, n_frames_total)
+        latents = encoder_forward(codec.enc_params, wav, codec.up_ratios_enc, codec.fuse_blocks)
+        codes, timbre = analyze(codec.dec_params, latents, pad_mask)
+        prompts = codes.permute(1, 0, 2).to(torch.int64)  # (B, n_q, T')
+        if p_bucket <= n_frames_total:
+            prompts = prompts[:, :, :p_bucket]
+        else:
+            prompts = torch.nn.functional.pad(prompts, (0, p_bucket - n_frames_total))
+        slot = torch.arange(p_bucket, device=wav.device)[None, None, :]
+        prompts = torch.where(slot < wav_frames[:, None, None], prompts,
+                              torch.full_like(prompts, vocab_pad))
+        return prompts, torch.clamp(wav_frames, max=p_bucket), timbre.float()
+
+    # --- public API --------------------------------------------------------
 
     @torch.no_grad()
-    def sample(self, phonemes: np.ndarray, src_lens: np.ndarray, prompts: np.ndarray,
-               prompt_lens: np.ndarray, timbres: np.ndarray, device: torch.device,
+    def sample(self, phonemes: np.ndarray, src_lens: np.ndarray, prompts: Optional[np.ndarray],
+               prompt_lens: Optional[np.ndarray], timbres: Optional[np.ndarray],
+               device: torch.device,
                nsteps_durgen: int = 64, nsteps_denoiser: int = 64,
                temp_durgen: float = 0.3, temp_denoiser: float = 0.3, vocab_pad: int = 1024,
                codec=None, noise: Optional[Dict] = None,
-               generator: Optional[torch.Generator] = None) -> Dict:
+               generator: Optional[torch.Generator] = None,
+               fused: bool = True, frames_per_phoneme_budget: Optional[float] = None,
+               prompt_wav: Optional[np.ndarray] = None,
+               prompt_frames: Optional[np.ndarray] = None) -> Dict:
+        """phonemes (B, L) with src_lens (B,), and either prompts (B, n_q, P)
+        + prompt_lens + timbres (B, 256), or prompt_wav (B, T) padded audio
+        + prompt_frames (B,) true frame counts (fused only, needs ``codec``).
+
+        Returns {"latents" (B, F, 256), "prior_embs", "prior_logits",
+        "tgt_len" (B,) numpy, "tgt_mask" (B, F) numpy, "frame_bucket" F} and
+        with a codec "wav" (B, F * hop, 1) float32 numpy."""
+        if prompt_wav is not None and not fused:
+            raise ValueError(
+                "prompt_wav (prompt analysis queued with the sampling) requires fused=True; "
+                "use codec.encode_prompt + prompts/timbres for the staged path")
         b, l_in = phonemes.shape
         l_bucket = pick_bucket(l_in, self.phoneme_buckets)
         if l_in > l_bucket:
             warnings.warn(f"phoneme length {l_in} exceeds the largest bucket {l_bucket}; "
-                          "input truncated", stacklevel=2)
+                          "input truncated (raise phoneme_buckets)", stacklevel=2)
         phonemes_b = np.zeros((b, l_bucket), dtype=np.int64)
         phonemes_b[:, : min(l_in, l_bucket)] = phonemes[:, :l_bucket]
         src_lens = np.minimum(np.asarray(src_lens, dtype=np.int64), l_bucket)
 
-        p_in = prompts.shape[-1]
+        if prompt_wav is not None:
+            if codec is None:
+                raise ValueError("prompt_wav requires `codec`")
+            p_in = int(np.max(np.asarray(prompt_frames)))
+        else:
+            p_in = prompts.shape[-1]
         p_bucket = pick_bucket(p_in, self.prompt_buckets)
         if p_in > p_bucket:
             warnings.warn(f"prompt length {p_in} frames exceeds the largest bucket "
-                          f"{p_bucket}; prompt truncated", stacklevel=2)
-        prompts_b = np.full((b, prompts.shape[1], p_bucket), vocab_pad, dtype=np.int64)
-        prompts_b[:, :, : min(p_in, p_bucket)] = prompts[:, :, :p_bucket]
-        prompt_lens = np.minimum(np.asarray(prompt_lens, dtype=np.int64), p_bucket)
+                          f"{p_bucket}; prompt truncated (raise prompt_buckets)", stacklevel=2)
 
         def dev(a):
             return torch.as_tensor(a, device=device)
 
+        if prompt_wav is None:
+            prompts_b = np.full((b, prompts.shape[1], p_bucket), vocab_pad, dtype=np.int64)
+            prompts_b[:, :, : min(p_in, p_bucket)] = prompts[:, :, :p_bucket]
+            prompts_t = dev(prompts_b)
+            prompt_lens_t = dev(np.minimum(np.asarray(prompt_lens, dtype=np.int64), p_bucket))
+            timbres_t = dev(np.asarray(timbres, dtype=np.float32))
         phonemes_t, src_lens_t = dev(phonemes_b), dev(src_lens)
 
-        # stage 1
-        src_mask = mask_from_lengths(src_lens_t, l_bucket)
-        enc_out = self.prior.encode(phonemes_t, src_mask)
-        phone_dur, sil_dur = pva_sample(
-            self.prior, enc_out, src_mask,
-            _noise(noise, "dur", (b, l_bucket), device, generator),
-            _noise(noise, "sil", (b, l_bucket), device, generator),
-            nsteps_durgen, temp_durgen)
-        valid = (~src_mask).float()
-        tgt_est = ((torch.clamp(phone_dur, min=1.0) * valid).sum(1)
-                   + (sil_dur * valid).sum(1)).to(torch.int64)
-        max_needed = int(tgt_est.max().item())  # the one host read between stages
-        if max_needed > self.frame_buckets[-1]:
-            warnings.warn(f"sampled target length {max_needed} frames exceeds the largest "
-                          f"frame bucket {self.frame_buckets[-1]}; output clipped", stacklevel=2)
-        f_bucket = pick_bucket(max_needed, self.frame_buckets)
+        def result(latents, hiddens, logits, tgt_len_h, tgt_mask_h, wav_h):
+            out = {"latents": latents, "prior_embs": hiddens, "prior_logits": logits,
+                   "tgt_len": tgt_len_h, "tgt_mask": tgt_mask_h,
+                   "frame_bucket": int(latents.shape[1])}
+            if wav_h is not None:
+                # inverse of the int16 quantization on the device
+                out["wav"] = wav_h.astype(np.float32) / PCM_SCALE
+            return out
 
-        # stage 2
-        lr_out, tgt_len = length_regulate(enc_out, phone_dur, sil_dur, src_lens_t, f_bucket)
-        tgt_mask = mask_from_lengths(tgt_len, f_bucket)
-        hiddens, _ = self.prior.decode(lr_out, tgt_mask, dev(prompts_b), dev(prompt_lens))
-        timbres_t = dev(np.asarray(timbres, dtype=np.float32))
-        latents = prob_sample(
-            self.prob, hiddens, timbres_t, tgt_mask,
-            _noise(noise, "latents", (b, f_bucket, self.prob.target_dim), device, generator),
-            nsteps_denoiser, temp_denoiser)
-        out = {"latents": latents, "tgt_len": tgt_len.cpu().numpy(), "frame_bucket": f_bucket}
-        if codec is not None:
-            out["wav"] = codec.decode(latents, timbres_t)
-        return out
+        def observe(tgt_raw_h):
+            ratios = tgt_raw_h / np.maximum(np.asarray(src_lens, np.float32), 1.0)
+            self._ratio_history.extend(float(r) for r in ratios)
+            del self._ratio_history[:-RATIO_HISTORY]
+            if int(tgt_raw_h.max()) > self.frame_buckets[-1]:
+                warnings.warn(f"sampled target length {int(tgt_raw_h.max())} frames exceeds the "
+                              f"largest frame bucket {self.frame_buckets[-1]}; output clipped "
+                              "(raise frame_buckets)", stacklevel=3)
+
+        if fused:
+            if frames_per_phoneme_budget is None:
+                if self._ratio_history:
+                    # p95 * margin of the observed speech rates, floored so
+                    # that one fast utterance cannot provoke overflow retries
+                    frames_per_phoneme_budget = max(
+                        float(np.percentile(self._ratio_history[-64:], 95) * 1.2),
+                        MIN_FRAMES_PER_PHONEME)
+                else:
+                    frames_per_phoneme_budget = FIRST_FRAMES_PER_PHONEME
+            f_guess = pick_bucket(int(np.max(src_lens) * frames_per_phoneme_budget),
+                                  self.frame_buckets)
+            if prompt_wav is not None:
+                # int16 PCM on the wire, as on the way out: the prompt comes
+                # from a 16-bit file, so nothing is lost and the upload halves
+                wav_q = np.round(np.clip(np.asarray(prompt_wav, dtype=np.float32), -1.0, 1.0)
+                                 * PCM_SCALE).astype(np.int16)
+                wav_t = dev(wav_q[:, :, None])
+                frames_t = dev(np.asarray(prompt_frames, dtype=np.int64))
+
+            # everything below is queued on the device; nothing is read back
+            # before fetch()
+            if prompt_wav is not None:
+                prompts_t, prompt_lens_t, timbres_t = self._analyze_prompt(
+                    codec, wav_t, frames_t, p_bucket, vocab_pad)
+            enc_out, phone_dur, sil_dur, tgt_raw = self._stage1(
+                phonemes_t, src_lens_t, noise, generator, nsteps_durgen, temp_durgen)
+
+            def stage2(f_bucket):
+                return self._stage2(enc_out, phone_dur, sil_dur, src_lens_t, prompts_t,
+                                    prompt_lens_t, f_bucket, timbres_t, noise, generator,
+                                    nsteps_denoiser, temp_denoiser, codec)
+
+            def fetch(res, *more):
+                """The one transfer: lengths, mask and wav together."""
+                host = [t.cpu().numpy() for t in more + (res[3], res[4])]
+                return host + [None if res[5] is None else res[5].cpu().numpy()]
+
+            res = stage2(f_guess)
+            tgt_raw_h, tgt_len_h, tgt_mask_h, wav_h = fetch(res, tgt_raw)
+            observe(tgt_raw_h)
+            if int(tgt_raw_h.max()) > f_guess and f_guess < self.frame_buckets[-1]:
+                # overflow: the durations stand (the JAX package gets the same
+                # ones again from the same key); only the stages that depend on
+                # the bucket run again
+                res = stage2(pick_bucket(int(tgt_raw_h.max()), self.frame_buckets))
+                tgt_len_h, tgt_mask_h, wav_h = fetch(res)
+            return result(res[0], res[1], res[2], tgt_len_h, tgt_mask_h, wav_h)
+
+        enc_out, phone_dur, sil_dur, tgt_est = self._stage1(
+            phonemes_t, src_lens_t, noise, generator, nsteps_durgen, temp_durgen)
+        tgt_est_h = tgt_est.cpu().numpy()  # the one host read between the stages
+        observe(tgt_est_h)
+        f_bucket = pick_bucket(int(tgt_est_h.max()), self.frame_buckets)
+        latents, hiddens, logits, tgt_len, tgt_mask, wav = self._stage2(
+            enc_out, phone_dur, sil_dur, src_lens_t, prompts_t, prompt_lens_t, f_bucket,
+            timbres_t, noise, generator, nsteps_denoiser, temp_denoiser, codec)
+        return result(latents, hiddens, logits, tgt_len.cpu().numpy(), tgt_mask.cpu().numpy(),
+                      None if wav is None else wav.cpu().numpy())

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import flamed_tts_tpu_torch
+from flamed_tts_tpu_torch import kernels
 
 PKG_DIR = os.path.dirname(flamed_tts_tpu_torch.__file__)
 ROOT = os.path.dirname(PKG_DIR)
@@ -32,7 +33,7 @@ def test_imports_with_jax_blocked():
                          timeout=300)
     assert res.returncode == 0, res.stderr
     n_modules = len(list(pkgutil.walk_packages([PKG_DIR], "flamed_tts_tpu_torch.")))
-    assert int(res.stdout.split()[-1]) == n_modules >= 25
+    assert int(res.stdout.split()[-1]) == n_modules >= 44
 
 
 def test_no_reference_to_jax_package():
@@ -67,7 +68,7 @@ def test_entry_points_refuse_to_run_without_a_card():
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
-    from flamed_tts_tpu_torch.ops.resunit import residual_unit_cuda
+    from flamed_tts_tpu_torch.ops.resunit import residual_stack_cuda, residual_unit_cuda
     from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
 
     x = torch.zeros(1, 8, 32)
@@ -81,6 +82,50 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         residual_unit_cuda(x, p, 1)
     with pytest.raises(ValueError, match="C % 32"):
         residual_unit_cuda(torch.zeros(1, 8, 16), p, 1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        residual_stack_cuda(x, [p, p, p])
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_off_cpu_tensors_never_reach_a_plain_version(monkeypatch, fuse):
+    """A tensor that does not lie on the CPU goes to a kernel wrapper, which
+    launches or raises: the dispatchers have no route from it to a plain
+    version.  (A meta tensor stands for an off-CPU tensor on a host without a card.)"""
+    from flamed_tts_tpu_torch.ops import resunit, snake
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version was reached from an off-CPU tensor")
+
+    for module, name in ((resunit, "residual_unit_reference"), (resunit, "residual_stack_reference"),
+                         (resunit, "snake_filtered_reference"), (snake, "snake_filtered_reference")):
+        monkeypatch.setattr(module, name, plain)
+    c = 64
+    x = torch.zeros(1, 300, c, device="meta")
+    p = {"act1": {"alpha": torch.zeros(c), "beta": torch.zeros(c)},
+         "act2": {"alpha": torch.zeros(c), "beta": torch.zeros(c)},
+         "conv1": {"w": torch.zeros(c, c, 7), "b": torch.zeros(c)},
+         "conv2": {"w": torch.zeros(c, c, 1), "b": torch.zeros(c)}}
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        resunit.residual_stack(x, [p, p, p], fuse=fuse)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        resunit.residual_unit(x, p, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        snake.snake_filtered(x, torch.zeros(c), torch.zeros(c))
+    assert not any(kernels.launches.values())
+
+
+def test_no_environment_variable_decides_a_route():
+    """Which kernel runs follows from the tensor (device, width, type) and
+    the caller's ``fuse_blocks`` alone: the port reads no environment variable."""
+    offenders = []
+    for dirpath, _, files in os.walk(PKG_DIR):
+        for name in files:
+            if name.endswith((".py", ".cu", ".cuh")):
+                with open(os.path.join(dirpath, name), encoding="utf-8") as f:
+                    text = f.read()
+                offenders += [f"{name}: {needle}" for needle in ("environ", "getenv") if needle in text]
+    assert not offenders, offenders
 
 
 def test_cpu_run_launches_no_kernel():
@@ -90,10 +135,14 @@ def test_cpu_run_launches_no_kernel():
     codec = FaCodec.random_init(torch.Generator().manual_seed(0), device="cpu")
     kernels.reset_launches()
     rng = np.random.RandomState(0)
-    wav = codec.decode(torch.from_numpy(rng.randn(1, 2, 256).astype(np.float32)),
-                       torch.from_numpy(rng.randn(1, 256).astype(np.float32)))
+    latents = torch.from_numpy(rng.randn(1, 2, 256).astype(np.float32))
+    timbre = torch.from_numpy(rng.randn(1, 256).astype(np.float32))
+    wav = codec.decode(latents, timbre)
     assert wav.shape == (1, 400, 1) and torch.isfinite(wav).all()
-    assert kernels.launches == {"snake_filtered": 0, "residual_unit": 0}
+    assert kernels.launches == {"snake_filtered": 0, "residual_unit": 0, "residual_stack": 0}
+    fused = FaCodec.random_init(torch.Generator().manual_seed(0), device="cpu", fuse_blocks=True)
+    assert torch.equal(fused.decode(latents, timbre), wav)  # on the CPU both are the plain chain
+    assert not any(kernels.launches.values())
 
 
 def test_noise_shape_is_checked():
