@@ -3,10 +3,14 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the last line):
-  1. build the CUDA kernels from flamed_tts_tpu_torch/csrc (nvcc, sm_90a);
+  1. build the CUDA kernels from flamed_tts_tpu_torch/csrc (nvcc, sm_90a)
+     and check in their SASS (cuobjdump) that the bf16 residual kernels hold
+     tensor-core instructions (HMMA / HGMMA) and the fp32 ones none;
   2. hold each kernel against its plain PyTorch version on the card, in
-     fp32 and bf16, at the main paths' shapes and at edge shapes; hold the
-     fused stack (K3) bit for bit against three single-unit (K2) launches;
+     fp32 and bf16, at the main paths' shapes and at edge shapes (for K2 and
+     K3 in bf16 also lengths that leave the last 16-row mma tile ragged);
+     hold the fused stack (K3) bit for bit against three single-unit (K2)
+     launches;
   3. drive the two main paths at full width (random prior/prob weights from
      seed 0, the trained codec in artifacts/codec_r5, a 3 s prompt, 64 + 64
      Euler steps), each with every kernel's launch count set to 0 just
@@ -22,7 +26,8 @@ Phases (any failure exits non-zero before the last line):
      again and time both beside the kernel's bound: the kernel's device
      time from a CUDA graph replay, and per-call time from CUDA events
      around back-to-back calls, which includes the host's launch cost; K3
-     also beside three K2 launches at its shape; print the kernels line,
+     also beside three K2 launches at its shape, and K2 and K3 in bf16
+     beside what their scalar-FMA predecessors read; print the kernels line,
      the card's name and power limit, and last the device line.
 """
 
@@ -31,6 +36,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -45,7 +52,10 @@ TOL = 1e-4  # fp32 both sides; sinf and the order of the FIR/conv sums differ
 # bf16 io: kernel and plain version round at the same places, but their fp32
 # sums differ in order, so a value near a rounding boundary may land one bf16
 # step away and the step feeds the next stage.  An element may be off by
-# BF16_STEPS steps of 2^-7 relative to max(|ref|, mean |ref|).
+# BF16_STEPS steps of 2^-7 relative to max(|ref|, mean |ref|).  The same
+# bound serves the tensor-core convs: an mma adds the same exact bf16 x bf16
+# products in fp32 as the FMA loop did, in yet another order, which is the
+# one freedom the bound was sized for.
 BF16_STEPS = 8
 SNAKE_FLOP_PER_ELEM = 58  # 12 upsample FMAs + 2 snakes (mul, sin, sq, fma) + 12 decimation FMAs, x2 per FMA
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -59,6 +69,24 @@ REPLACES = {"snake_filtered": "flamed_tts_tpu/ops/pallas_resample.py:159",
             "residual_unit": "flamed_tts_tpu/ops/pallas_resunit.py:455",
             "residual_stack": "flamed_tts_tpu/ops/pallas_resunit.py:496"}
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+# Device ms (CUDA graph replay) of the bf16 K2 and K3 while their convs were
+# scalar fp32 FMA loops, as this script read them on an NVIDIA H100 80GB HBM3
+# at 700.00 W before the tensor-core convs replaced the loops: (kernel, T, C,
+# dilation or 0) -> ms.  Printed on the [time] log line of the same shape and
+# nowhere in the kernels line, which holds this run's measurements only.
+FMA_LOOP_MS = {
+    ("residual_unit", 1200, 256, 1): 1.842, ("residual_unit", 1200, 256, 3): 1.854,
+    ("residual_unit", 1200, 256, 9): 1.882, ("residual_unit", 12800, 256, 1): 1.869,
+    ("residual_unit", 12800, 256, 3): 1.879, ("residual_unit", 12800, 256, 9): 1.917,
+    ("residual_unit", 2560, 512, 1): 4.903, ("residual_unit", 2560, 512, 3): 4.385,
+    ("residual_unit", 2560, 512, 9): 3.748,
+    ("residual_stack", 48000, 32, 0): 0.6359, ("residual_stack", 24000, 64, 0): 0.9713,
+    ("residual_stack", 6000, 128, 0): 1.9490, ("residual_stack", 51200, 128, 0): 5.7814,
+    ("residual_stack", 102400, 64, 0): 3.7543,
+}
+# lengths that end inside a 16-row mma tile: one row, one short of and one
+# past a tile, the same around three tiles, and one no K2 or K3 tile divides
+MMA_PADDING_T = (1, 15, 17, 47, 49, 333)
 
 
 def log(*a):
@@ -125,36 +153,58 @@ def bound_ms(name: str, t: int, c: int, dtype: torch.dtype) -> tuple:
     return (1e3 * max(tb, to), "bytes" if tb >= to else "operations")
 
 
+def tensor_core_counts(kernels) -> dict:
+    """{kernel function in the built K2 / K3 libraries: HMMA + HGMMA
+    instructions in its SASS}, from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for name in ("residual_unit", "residual_stack"):
+        res = subprocess.run([tool, "-sass", kernels.library_path(name)], capture_output=True,
+                             text=True, timeout=300)
+        if res.returncode != 0:
+            raise RuntimeError(f"cuobjdump failed on {name}: {res.stderr}")
+        fn = None
+        for line in res.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn is not None and re.search(r"\bHG?MMA\b", line):
+                counts[fn] += 1
+    return counts
+
+
 def main_path_calls(codec, n_samples: int, f_bucket: int) -> list:
-    """(kernel, T, C, dilation or 0, params) of every kernel call in one
-    Flamed.sample: the encoder over the padded prompt, the decoder over the
-    frame bucket.  A block's three residual units are one residual_stack
-    call where the codec fuses blocks and stack_tile admits the block."""
+    """(kernel, T, C, dilation or 0, params, prepared weights or None) of
+    every kernel call in one Flamed.sample: the encoder over the padded
+    prompt, the decoder over the frame bucket.  A block's three residual
+    units are one residual_stack call where the codec fuses blocks and
+    stack_tile admits the block."""
     from flamed_tts_tpu_torch.ops.resunit import stack_tile
 
     dtype = codec.dec_params["stem"]["w"].dtype
 
-    def block(t, c, res):
+    def block(t, c, res, prepared):
         if codec.fuse_blocks and stack_tile(c, dtype) is not None:
-            return [("residual_stack", t, c, 0, res)]
-        return [("residual_unit", t, c, d, u) for u, d in zip(res, (1, 3, 9))]
+            return [("residual_stack", t, c, 0, res, prepared)]
+        return [("residual_unit", t, c, d, u, w) for u, w, d in zip(res, prepared, (1, 3, 9))]
 
     calls = []
     t = n_samples
-    for blk, stride in zip(codec.enc_params["blocks"], codec.up_ratios_enc):
+    for blk, prepared, stride in zip(codec.enc_params["blocks"], codec.enc_prepared, codec.up_ratios_enc):
         c = blk["act"]["alpha"].numel()
-        calls += block(t, c, blk["res"])
-        calls.append(("snake_filtered", t, c, 0, blk["act"]))
+        calls += block(t, c, blk["res"], prepared)
+        calls.append(("snake_filtered", t, c, 0, blk["act"], None))
         t //= stride
     calls.append(("snake_filtered", t, codec.enc_params["final_act"]["alpha"].numel(), 0,
-                  codec.enc_params["final_act"]))
+                  codec.enc_params["final_act"], None))
     t = f_bucket
-    for blk, stride in zip(codec.dec_params["blocks"], codec.up_ratios_dec):
-        calls.append(("snake_filtered", t, blk["act"]["alpha"].numel(), 0, blk["act"]))
+    for blk, prepared, stride in zip(codec.dec_params["blocks"], codec.dec_prepared, codec.up_ratios_dec):
+        calls.append(("snake_filtered", t, blk["act"]["alpha"].numel(), 0, blk["act"], None))
         t *= stride
-        calls += block(t, blk["up"]["w"].shape[1], blk["res"])
+        calls += block(t, blk["up"]["w"].shape[1], blk["res"], prepared)
     calls.append(("snake_filtered", t, codec.dec_params["final_act"]["alpha"].numel(), 0,
-                  codec.dec_params["final_act"]))
+                  codec.dec_params["final_act"], None))
     return calls
 
 
@@ -249,7 +299,7 @@ def main() -> int:
     from flamed_tts_tpu_torch.ops.resunit import (pick_tile, residual_stack_cuda,
                                                   residual_stack_reference, residual_unit_cuda,
                                                   residual_unit_reference, stack_smem_bytes,
-                                                  stack_tile)
+                                                  stack_tile, unit_smem_bytes)
     from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
 
     dev = torch.device("cuda")
@@ -264,6 +314,14 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {name}: {line.strip()}")
+    counts = tensor_core_counts(kernels)
+    for fn, n in counts.items():
+        log(f"[sass] {fn}: {n} HMMA/HGMMA instructions")
+    bf16_fns = [fn for fn in counts if "bfloat16" in fn]
+    if (len(bf16_fns) < 2 or any(counts[fn] == 0 for fn in bf16_fns)
+            or any(n for fn, n in counts.items() if fn not in bf16_fns)):
+        raise AssertionError("the bf16 residual kernels must hold tensor-core instructions, "
+                             "the fp32 ones none")
 
     codec = FaCodec.from_pretrained(CODEC_DIR, device=dev)            # path A: fp32, K2 per unit
     codec_b = FaCodec.from_pretrained(CODEC_DIR, device=dev, fuse_blocks=True)
@@ -282,11 +340,18 @@ def main() -> int:
         return {"alpha": rand(c) * 0.3, "beta": rand(c) * 0.3}
 
     def stack_args(c, dtype=torch.float32):
+        """Three units of width c: the trained codec's where it has the
+        width, else random ones."""
         cd = codecs[dtype]
         for blk in cd.enc_params["blocks"] + cd.dec_params["blocks"]:
             if blk["res"][0]["act1"]["alpha"].numel() == c:
                 return blk["res"]
-        raise KeyError(c)
+        scale = 1.0 / math.sqrt(7 * c)
+        return [{"act1": {"alpha": rand(c) * 0.3, "beta": rand(c) * 0.3},
+                 "act2": {"alpha": rand(c) * 0.3, "beta": rand(c) * 0.3},
+                 "conv1": {"w": rand(c, c, 7, dtype=dtype) * scale, "b": rand(c, dtype=dtype) * 0.1},
+                 "conv2": {"w": rand(c, c, 1, dtype=dtype) * scale, "b": rand(c, dtype=dtype) * 0.1}}
+                for _ in range(3)]
 
     # 2. kernels against their plain versions
     max_err = {}
@@ -311,9 +376,9 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"{name} {label} disagrees with its plain version")
 
-    def three_units(x, units):
-        for p, d in zip(units, (1, 3, 9)):
-            x = residual_unit_cuda(x, p, d)
+    def three_units(x, units, prepared=(None, None, None)):
+        for p, w, d in zip(units, prepared, (1, 3, 9)):
+            x = residual_unit_cuda(x, p, d, w)
         return x
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -325,7 +390,7 @@ def main() -> int:
             for p, d in zip(stack_args(c, dtype), (1, 3, 9)):
                 x = rand(1, t, c, dtype=dtype)
                 compare("residual_unit", residual_unit_cuda(x, p, d), residual_unit_reference(x, p, d),
-                        f"(1, {t}, {c}) d={d} tile={pick_tile(min(t, 128), c, d, x.element_size())}")
+                        f"(1, {t}, {c}) d={d}")
         # K3 at every (C, dtype) stack_tile admits, at edge shapes (shorter
         # than the stack's halo of 75 rows, around twice it, a non-multiple
         # of the tile) and at main-path lengths
@@ -348,6 +413,30 @@ def main() -> int:
                                          "three residual_unit launches")
             log(f"[check] residual_stack {DTYPE_NAMES[dtype]} C={c} tile={tile}: equal to three "
                 f"residual_unit launches bit for bit at T = 1, 30, 149, 151, {3 * tile + 17}, 24000")
+    # K2 and K3 in bf16 where the last mma tile of 16 rows is ragged
+    unit_fn = kernels.library("residual_unit").residual_unit_smem_bytes
+    for c in (32, 96, 512):
+        units = stack_args(c, torch.bfloat16)
+        for d in (1, 3, 9):
+            tile = pick_tile(333, c, d, 2)
+            if unit_fn(c, d, tile, 2) != unit_smem_bytes(c, d, tile, 2):
+                raise AssertionError("unit_smem_bytes disagrees with residual_unit.cu")
+        for t in MMA_PADDING_T:
+            x = rand(1, t, c, dtype=torch.bfloat16)
+            chain = x
+            for p, d in zip(units, (1, 3, 9)):
+                out = residual_unit_cuda(chain, p, d)
+                compare("residual_unit", out, residual_unit_reference(chain, p, d),
+                        f"(1, {t}, {c}) d={d} tile={pick_tile(t, c, d, 2)}")
+                chain = out
+            if stack_tile(c, torch.bfloat16) is not None:
+                out = residual_stack_cuda(x, units)
+                compare("residual_stack", out, residual_stack_reference(x, units), f"(1, {t}, {c})")
+                if not torch.equal(out, chain):
+                    raise AssertionError(f"residual_stack (1, {t}, {c}) bf16 is not bit for bit "
+                                         "three residual_unit launches")
+    log(f"[check] residual_unit / residual_stack bf16 at T = {MMA_PADDING_T}, C = 32, 96, 512: within "
+        f"tolerance, K3 equal to three K2 launches bit for bit at C = 32, 96")
     torch.cuda.synchronize()
 
     # 3. the main paths
@@ -449,7 +538,7 @@ def main() -> int:
     per = {}
     for path, run, cd in (("A", run_a, codec), ("B", run_b, codec_b)):
         dtype = cd.dec_params["stem"]["w"].dtype
-        for name, t, ch, d, p in run["calls"]:
+        for name, t, ch, d, p, w in run["calls"]:
             rows = per.setdefault((name, DTYPE_NAMES[dtype], path), {})
             if (t, ch, d) in rows:
                 rows[(t, ch, d)]["calls"] += 1
@@ -459,10 +548,10 @@ def main() -> int:
                 run_k = lambda: snake_filtered_cuda(x, p["alpha"], p["beta"])
                 plain = lambda: snake_filtered_reference(x, p["alpha"], p["beta"])
             elif name == "residual_unit":
-                run_k = lambda: residual_unit_cuda(x, p, d)
+                run_k = lambda: residual_unit_cuda(x, p, d, w)
                 plain = lambda: residual_unit_reference(x, p, d)
             else:
-                run_k = lambda: residual_stack_cuda(x, p)
+                run_k = lambda: residual_stack_cuda(x, p, prepared=w)
                 plain = lambda: residual_stack_reference(x, p)
             compare(name, run_k(), plain(), f"path {path} shape (1, {t}, {ch}) d={d}")
             work = t * ch * (1 + ch // 64) * (3 if name == "residual_stack" else 1)
@@ -474,10 +563,13 @@ def main() -> int:
                    "bound_ms": round(b_ms, 5), "bound_by": b_by}
             extra = ""
             if name == "residual_stack":
-                row["three_unit_ms"] = round(graph_ms(lambda: three_units(x, p), reps), 4)
-                row["three_unit_wall_ms"] = round(time_ms(lambda: three_units(x, p), reps), 4)
+                row["three_unit_ms"] = round(graph_ms(lambda: three_units(x, p, w), reps), 4)
+                row["three_unit_wall_ms"] = round(time_ms(lambda: three_units(x, p, w), reps), 4)
                 extra = (f", three residual_unit launches {row['three_unit_ms']:.4f} ms (graph) / "
                          f"{row['three_unit_wall_ms']:.4f} ms (per call)")
+            before = FMA_LOOP_MS.get((name, t, ch, d)) if dtype == torch.bfloat16 else None
+            if before is not None:
+                extra += f"; its scalar-FMA predecessor read {before} ms (graph)"
             rows[(t, ch, d)] = row
             log(f"[time] path {path} {name} {DTYPE_NAMES[dtype]} (1, {t}, {ch}) d={d}: kernel "
                 f"{k_ms:.4f} ms (graph) / {k_wall:.4f} ms (per call), plain {p_ms:.4f} ms (per call), "

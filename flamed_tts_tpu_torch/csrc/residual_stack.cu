@@ -6,11 +6,13 @@
 // (residual_stack_pallas, bodies _stack_kernel / _stack_kernel_folded).
 //
 // Bound on the H100: operations, as for the single unit (three times its
-// FLOPs against one read and one write of the activation).  The kernel
-// spends them as fp32 FMAs and redoes the halo rows, so its gain over three
-// single-unit launches is two round trips of (T, C) through device memory
-// and two launches, paid for with (n1 + n2 + n3) / (3 * TILE) times the
-// arithmetic.
+// FLOPs against one read and one write of the activation).  In bf16 the
+// convs run on the tensor cores (conv_mma in resunit.cuh), in fp32 as scalar
+// FMAs (conv_rows).  Either way the kernel redoes the halo rows, so its gain
+// over three single-unit launches is two round trips of (T, C) through
+// device memory and two launches, paid for with (n1 + n2 + n3) / (3 * TILE)
+// times the arithmetic and the snakes; in bf16, where the convs are cheap,
+// the snakes over the halo rows are the larger part of that price.
 //
 // Design: a block owns TILE output rows of one batch row.  Unit i needs
 // 3 * d_i + 12 rows of context a side, so the block computes
@@ -19,20 +21,22 @@
 //   unit 3 on n3 = TILE rows,
 // each with unit_rows (resunit.cuh), the very code of the single-unit
 // kernel, so an element gets the same bits as from three launches of it.
-// Shared memory holds three buffers of the io type:
+// Shared memory holds three buffers of the io type (rows of C values in
+// fp32, of C + 8 in bf16, see resunit.cuh):
 //   Y  (n1 rows): unit 1's output; unit 2 adds its branch to it in place
 //                 (its residual is read and its sum written by one thread);
 //   H1 (max over the units of n_i + 6 d_i + 12 rows): snake 1, then snake 2;
 //   H2 (n1 + 12 rows): the dilated conv's output;
-// plus the snake scratch.  Unit 1 reads x from device memory, unit 3 writes
+// plus the snake scratch and, in bf16, the two weight stages of conv_mma
+// (32 KB).  Unit 1 reads x from device memory, unit 3 writes
 // to it.  Per unit the global edges are handled where they arise: a row of
 // an intermediate outside [0, T) is zero for the next conv (snake_rows
 // writes the zero) and never read by the next snake, whose replicate pad
 // clamps to [0, T) of that intermediate, not of x.
-// 227 KB of shared memory limits the block to about (3 * TILE + 390) * C
-// values; the host wrapper takes the stack only where a useful TILE fits
-// (C <= 64 in fp32, C <= 128 in bf16) and launches the single-unit kernel
-// three times elsewhere.
+// 227 KB of shared memory limits the block to about (3 * TILE + 390) rows;
+// the host wrapper takes the stack only where a useful TILE fits (C <= 64 in
+// fp32, C <= 128 in bf16) and launches the single-unit kernel three times
+// elsewhere.
 #include "resunit.cuh"
 
 template <typename IO>
@@ -60,54 +64,62 @@ __host__ __device__ inline StackRows stack_rows(int tile, int d1, int d2,
   return r;
 }
 
-template <typename IO, int CT>
-__global__ void __launch_bounds__(256)
+template <typename IO, int CT, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 residual_stack_kernel(const IO* __restrict__ x, StackParams<IO> prm,
                       IO* __restrict__ out, int T, int C, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t0 = blockIdx.x * tile;
   const int d1 = prm.d[0], d2 = prm.d[1], d3 = prm.d[2];
   const StackRows rows = stack_rows(tile, d1, d2, d3);
+  const int ld = smem_ld(C, (int)sizeof(IO));
   IO* Y = reinterpret_cast<IO*>(smem);
-  IO* H1 = Y + (size_t)rows.y * C;
-  IO* H2 = H1 + (size_t)rows.h1 * C;
-  float* scr = reinterpret_cast<float*>(H2 + (size_t)rows.h2 * C);
+  IO* H1 = Y + (size_t)rows.y * ld;
+  IO* H2 = H1 + (size_t)rows.h1 * ld;
+  float* scr = reinterpret_cast<float*>(H2 + (size_t)rows.h2 * ld);
+  unsigned char* stage =
+      reinterpret_cast<unsigned char*>(scr + SNAKE_SCRATCH_FLOATS);
   const size_t batch = (size_t)blockIdx.y * T * C;
   const IO* xb = x + batch;
 
   const int a1 = t0 - (rows.n1 - tile) / 2;  // first row of Y
   const int a2 = t0 - (rows.n2 - tile) / 2;
   // unit 1: x (device memory) -> Y
-  unit_rows<IO, CT>(GlobalRows<IO>{xb, C}, xb + (ptrdiff_t)a1 * C, Y, a1,
-                    rows.n1, T, C, d1, prm.unit[0], H1, H2, scr);
+  unit_rows<IO, CT, THREADS>(GlobalRows<IO>{xb, C}, xb + (ptrdiff_t)a1 * C, C,
+                             Y, ld, a1, rows.n1, T, C, d1, prm.unit[0], H1, H2,
+                             ld, scr, stage);
   __syncthreads();
   // unit 2: Y -> Y, in place on its rows [a2, a2 + n2)
-  IO* y2 = Y + (size_t)(a2 - a1) * C;
-  unit_rows<IO, CT>(SharedRows<IO>{Y, C, a1}, y2, y2, a2, rows.n2, T, C, d2,
-                    prm.unit[1], H1, H2, scr);
+  IO* y2 = Y + (size_t)(a2 - a1) * ld;
+  unit_rows<IO, CT, THREADS>(SharedRows<IO>{Y, ld, a1}, y2, ld, y2, ld, a2,
+                             rows.n2, T, C, d2, prm.unit[1], H1, H2, ld, scr,
+                             stage);
   __syncthreads();
   // unit 3: Y -> out (device memory)
-  unit_rows<IO, CT>(SharedRows<IO>{Y, C, a1}, Y + (size_t)(t0 - a1) * C,
-                    out + batch + (size_t)t0 * C, t0, rows.n3, T, C, d3,
-                    prm.unit[2], H1, H2, scr);
+  unit_rows<IO, CT, THREADS>(SharedRows<IO>{Y, ld, a1},
+                             Y + (size_t)(t0 - a1) * ld, ld,
+                             out + batch + (size_t)t0 * C, C, t0, rows.n3, T, C,
+                             d3, prm.unit[2], H1, H2, ld, scr, stage);
 }
 
 // itemsize: bytes of one io value (4 or 2).
 extern "C" int residual_stack_smem_bytes(int C, int tile, int d1, int d2,
                                          int d3, int itemsize) {
   const StackRows r = stack_rows(tile, d1, d2, d3);
-  return (int)((size_t)(r.y + r.h1 + r.h2) * C * itemsize +
-               SNAKE_SCRATCH_FLOATS * sizeof(float));
+  return (int)((size_t)(r.y + r.h1 + r.h2) * smem_ld(C, itemsize) * itemsize +
+               SNAKE_SCRATCH_FLOATS * sizeof(float) +
+               conv_stage_bytes(itemsize));
 }
 
-template <typename IO, int CT>
+template <typename IO, int CT, int THREADS>
 static int launch(const void* x, const void* const* p, void* out, int B, int T,
                   int C, int tile, const int* d, cudaStream_t stream) {
   const int smem =
       residual_stack_smem_bytes(C, tile, d[0], d[1], d[2], (int)sizeof(IO));
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   static bool smem_set[MAX_DEVICES] = {};
-  cudaError_t err = allow_full_smem(residual_stack_kernel<IO, CT>, smem_set);
+  cudaError_t err =
+      allow_full_smem(residual_stack_kernel<IO, CT, THREADS>, smem_set);
   if (err != cudaSuccess) return (int)err;
   StackParams<IO> prm;
   for (int i = 0; i < 3; ++i) {
@@ -118,22 +130,15 @@ static int launch(const void* x, const void* const* p, void* out, int B, int T,
     prm.d[i] = d[i];
   }
   const dim3 grid((T + tile - 1) / tile, B);
-  residual_stack_kernel<IO, CT><<<grid, 256, smem, stream>>>(
+  residual_stack_kernel<IO, CT, THREADS><<<grid, THREADS, smem, stream>>>(
       (const IO*)x, prm, (IO*)out, T, C, tile);
   return (int)cudaGetLastError();
 }
 
-template <typename IO>
-static int launch_ct(const void* x, const void* const* p, void* out, int B,
-                     int T, int C, int tile, const int* d, cudaStream_t s) {
-  if (C % 128 == 0) return launch<IO, 4>(x, p, out, B, T, C, tile, d, s);
-  if (C % 64 == 0) return launch<IO, 2>(x, p, out, B, T, C, tile, d, s);
-  return launch<IO, 1>(x, p, out, B, T, C, tile, d, s);
-}
-
 // params: host array of 24 device pointers, 8 per unit in the order of
 // UnitParams (log alpha1, log beta1, w1t, b1, log alpha2, log beta2, w2t,
-// b2).  bf16 != 0 selects the bf16 io type.  C must be a multiple of 32.
+// b2).  bf16 != 0 selects the bf16 io type, whose weights come in conv_mma's
+// packed order.  C must be a multiple of 32, and at most MMA_MAX_C in bf16.
 extern "C" int residual_stack_launch(const void* x, const void* const* params,
                                      void* out, int B, int T, int C, int tile,
                                      int d1, int d2, int d3, int bf16,
@@ -143,7 +148,16 @@ extern "C" int residual_stack_launch(const void* x, const void* const* params,
     return (int)cudaErrorInvalidValue;
   const int d[3] = {d1, d2, d3};
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return launch_ct<__nv_bfloat16>(x, params, out, B, T, C, tile, d, s);
-  return launch_ct<float>(x, params, out, B, T, C, tile, d, s);
+  if (bf16) {
+    if (C > MMA_MAX_C) return (int)cudaErrorInvalidValue;
+    // the three buffers leave an SM one block: 16 warps, not 8, to hide the
+    // snakes' latency
+    return launch<__nv_bfloat16, 1, 512>(x, params, out, B, T, C, tile, d, s);
+  }
+  // CT: groups of 32 output channels a warp of the fp32 conv owns
+  if (C % 128 == 0)
+    return launch<float, 4, 256>(x, params, out, B, T, C, tile, d, s);
+  if (C % 64 == 0)
+    return launch<float, 2, 256>(x, params, out, B, T, C, tile, d, s);
+  return launch<float, 1, 256>(x, params, out, B, T, C, tile, d, s);
 }

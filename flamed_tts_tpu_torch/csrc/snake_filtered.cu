@@ -12,8 +12,9 @@
 // global load and store of a warp is one line.  The 2x-rate window of the
 // tile (2 * SNAKE_ROWS + 10 values per channel) is built once in shared
 // memory, so each 2x-rate sample costs one sinf, and the decimation reads it
-// from there.  The six input rows each 2x-rate sample needs are re-read
-// through L1.  Row and 2x-rate indices are clamped exactly as the
+// from there.  The six input rows a pair of 2x-rate samples needs are
+// re-read through L1, and a warp works on several pairs at once to hide
+// sinf and the loads.  Row and 2x-rate indices are clamped exactly as the
 // reference's replicate pads clamp them, so the global edges need no second
 // pass (see snake.cuh).  The TPU kernel's lane fold is a 128-lane VPU trick
 // and is not carried over.
@@ -30,9 +31,9 @@ snake_filtered_kernel(const IO* __restrict__ x,
   const int c_begin = blockIdx.y * 32;
   const int c_end = min(C, c_begin + 32);
   const size_t batch = (size_t)blockIdx.z * T * C;
-  snake_rows(GlobalRows<IO>{x + batch, C}, T, C, r0, min(SNAKE_ROWS, T - r0),
+  snake_rows<8>(GlobalRows<IO>{x + batch, C}, T, C, r0, min(SNAKE_ROWS, T - r0),
              c_begin, c_end, log_alpha, log_beta,
-             out + batch + (size_t)r0 * C, scr);
+             out + batch + (size_t)r0 * C, C, scr);
 }
 
 // bf16 != 0 selects the bf16 io type; log_alpha and log_beta are fp32.

@@ -142,6 +142,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return seconds
 
 
+def library_path(name: str) -> str:
+    """Where kernel ``name``'s shared library is, or will be, built."""
+    return _lib_path(name, _flags())
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _libs.get(name)
@@ -149,7 +154,7 @@ def library(name: str) -> ctypes.CDLL:
         return lib
     with _lock:
         if name not in _libs:
-            path = _lib_path(name, _flags())
+            path = library_path(name)
             if not os.path.exists(path):
                 build([name])
             lib = ctypes.CDLL(path)

@@ -8,7 +8,10 @@ pads it, so that the codes and the timbre equal its outputs.
 activations then follow them (ops/conv1d.py).  ``fuse_blocks`` chooses the
 kernel behind a block's three residual units on the card: one K2 launch a
 unit (the default), or one K3 launch a block where
-``ops.resunit.stack_tile`` admits it.
+``ops.resunit.stack_tile`` admits it.  The residual units' conv weights are
+laid out for those kernels once, where the parameters are taken or cast
+(``enc_prepared`` / ``dec_prepared``, beside the parameter trees), not on
+every launch.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from flamed_tts_tpu_torch.device import resolve_device
 from flamed_tts_tpu_torch.models.facodec.decoder import analyze, synthesize, vq2emb
 from flamed_tts_tpu_torch.models.facodec.encoder import encoder_forward
 from flamed_tts_tpu_torch.ops.masking import mask_from_lengths
+from flamed_tts_tpu_torch.ops.resunit import prepare_unit
 from flamed_tts_tpu_torch.runtime.buckets import DEFAULT_WAV_SECOND_BUCKETS, pick_bucket
 from flamed_tts_tpu_torch.runtime.pytree_io import load_pytree_npz
 
@@ -103,6 +107,14 @@ class FaCodec:
         self.up_ratios_enc = tuple(up_ratios_enc)
         self.up_ratios_dec = tuple(up_ratios_dec)
         self.hop = int(np.prod(self.up_ratios_enc))
+        self._prepare_kernel_weights()
+
+    def _prepare_kernel_weights(self) -> None:
+        """Per block, its residual units' conv weights in the kernels'
+        layout for the parameters' type.  Call again after the parameters
+        change."""
+        self.enc_prepared = [[prepare_unit(u) for u in blk["res"]] for blk in self.enc_params["blocks"]]
+        self.dec_prepared = [[prepare_unit(u) for u in blk["res"]] for blk in self.dec_params["blocks"]]
 
     @classmethod
     def from_pretrained(cls, ckpt_dir: str, codec_cfg: Optional[Dict] = None,
@@ -152,6 +164,7 @@ class FaCodec:
 
         self.enc_params = cast(self.enc_params)
         self.dec_params = cast(self.dec_params)
+        self._prepare_kernel_weights()
 
     def pad_prompt_wav(self, wav: np.ndarray) -> Tuple[np.ndarray, int]:
         """Prompt wav (T,) -> (seconds-bucket padded wav, true frame count)."""
@@ -169,7 +182,8 @@ class FaCodec:
         wav_t = torch.as_tensor(padded, device=self.device)[None, :, None]
         pad_mask = mask_from_lengths(torch.tensor([n_frames], device=self.device),
                                      len(padded) // self.hop)
-        latents = encoder_forward(self.enc_params, wav_t, self.up_ratios_enc, self.fuse_blocks)
+        latents = encoder_forward(self.enc_params, wav_t, self.up_ratios_enc, self.fuse_blocks,
+                                  self.enc_prepared)
         codes, timbre = analyze(self.dec_params, latents, pad_mask)
         return codes, timbre, n_frames
 
@@ -182,7 +196,8 @@ class FaCodec:
     @torch.no_grad()
     def decode(self, latents: torch.Tensor, timbre: torch.Tensor) -> torch.Tensor:
         """latents (B, T, 256) + timbre (B, 256) -> wav (B, T * hop, 1)."""
-        return synthesize(self.dec_params, latents, timbre, self.up_ratios_dec, self.fuse_blocks)
+        return synthesize(self.dec_params, latents, timbre, self.up_ratios_dec, self.fuse_blocks,
+                          self.dec_prepared)
 
     @torch.no_grad()
     def round_trip(self, wav: np.ndarray) -> np.ndarray:

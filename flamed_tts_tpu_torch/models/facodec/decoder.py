@@ -11,7 +11,7 @@
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
@@ -42,26 +42,30 @@ def vq2emb(params: Dict, codes: Tensor, use_residual: bool = True) -> Tensor:
     return out
 
 
-def decoder_block(x: Tensor, p: Dict, stride: int, fuse_blocks: bool = False) -> Tensor:
+def decoder_block(x: Tensor, p: Dict, stride: int, fuse_blocks: bool = False,
+                  prepared: Optional[List[Dict]] = None) -> Tensor:
     x = snake_filtered(x, p["act"]["alpha"], p["act"]["beta"])
     x = conv_transpose1d(x, p["up"]["w"], p["up"]["b"], stride=stride,
                          padding=stride // 2 + stride % 2, output_padding=stride % 2)
-    return residual_stack(x, p["res"], fuse=fuse_blocks)
+    return residual_stack(x, p["res"], fuse=fuse_blocks, prepared=prepared)
 
 
 def synthesize(params: Dict, latents: Tensor, timbre: Tensor,
-               up_ratios: Sequence[int] = (5, 5, 4, 2), fuse_blocks: bool = False) -> Tensor:
+               up_ratios: Sequence[int] = (5, 5, 4, 2), fuse_blocks: bool = False,
+               prepared: Optional[List[List[Dict]]] = None) -> Tensor:
     """latents (B, T, 256) + timbre (B, 256) -> wav (B, T * 200, 1), in the
     type of the parameters.  ``fuse_blocks`` runs a block's three residual
-    units as one K3 launch where ``ops.resunit.stack_tile`` admits it."""
+    units as one K3 launch where ``ops.resunit.stack_tile`` admits it.
+    ``prepared`` holds, per block, its units' kernel-layout weights
+    (``ops.resunit.prepare_unit``) where the caller keeps them."""
     style = linear(timbre, params["timbre_linear"])
     gamma, beta = style[:, None, :].chunk(2, dim=-1)
     mean = latents.mean(-1, keepdim=True)
     var = ((latents - mean) ** 2).mean(-1, keepdim=True)
     x = (latents - mean) / torch.sqrt(var + 1e-5) * gamma + beta
     x = conv1d(x, params["stem"]["w"], params["stem"]["b"], padding=3)
-    for block, stride in zip(params["blocks"], up_ratios):
-        x = decoder_block(x, block, stride, fuse_blocks)
+    for i, (block, stride) in enumerate(zip(params["blocks"], up_ratios)):
+        x = decoder_block(x, block, stride, fuse_blocks, prepared[i] if prepared else None)
     x = snake_filtered(x, params["final_act"]["alpha"], params["final_act"]["beta"])
     x = conv1d(x, params["out"]["w"], params["out"]["b"], padding=3)
     return torch.tanh(x)

@@ -8,6 +8,13 @@ kernels (csrc/residual_unit.cu, csrc/residual_stack.cu):
 versions (the separate-op chain); ``residual_unit`` and ``residual_stack``
 run the kernels for a CUDA tensor and the plain chain for a CPU tensor.
 
+In float32 the kernels' convs are scalar FMAs over weights laid out
+[k][ci][co]; in bfloat16 they are tensor-core products (``mma.sync``
+m16n8k16) over weights packed into the order of the mma B fragments
+(``pack_mma_weights``).  ``kernel_weights`` makes either layout and
+``prepare_unit`` both of a unit, so that a caller who keeps its parameters
+(``FaCodec``) lays them out once and not on every launch.
+
 The io type is that of ``x`` (float32 or bfloat16) and the conv weights and
 biases must have it too.  Sums are float32; in bfloat16 a value is rounded
 where the kernels round it: after each snake, each conv sum before its bias
@@ -20,7 +27,7 @@ conv1 {"w": (C, C, 7), "b": (C,)}, conv2 {"w": (C, C, 1), "b": (C,)}.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -30,7 +37,16 @@ from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper (SMEM_LIMIT in resunit.cuh)
 SNAKE_SCRATCH_BYTES = (2 * 32 + 10) * 32 * 4  # SNAKE_SCRATCH_FLOATS in snake.cuh
-_RT = 8  # rows per conv work item in the kernels (RT in resunit.cuh)
+_RT = 8  # rows per work item of the float32 conv (RT in resunit.cuh)
+MMA_M = 16  # rows of one mma.sync tile: the bfloat16 convs compute rows in multiples of it
+MMA_PAD = 8  # bfloat16 values added to a shared-memory row (MMA_PAD in resunit.cuh)
+MMA_STAGE_BYTES = 16384  # one weight stage (MMA_STAGE_BYTES in resunit.cuh)
+MMA_STAGES = 2  # weight stages of the bfloat16 convs (MMA_STAGES in resunit.cuh)
+MMA_MAX_C = 512  # widest bfloat16 conv the kernels take (MMA_MAX_C in resunit.cuh)
+MMA_LONG_TILE = 100  # K2's bfloat16 tile for a long input: the fastest of the sweep at every long shape
+MMA_SHORT_TILE = 20  # and for an input too short to give the SMs a block each at a larger one
+N_SMS = 132  # streaming multiprocessors of an H100
+SM_SMEM_BYTES = 233472  # shared memory of one SM (228 KB); a resident block takes 1 KB more than it asks for
 STACK_DILATIONS = (1, 3, 9)
 STACK_MAX_TILE = 256  # more rows per block would leave the card's 132 SMs short of blocks
 STACK_MIN_TILE = 64   # below this the halo rows (150 a block) cost more than they save
@@ -52,15 +68,92 @@ def residual_stack_reference(x: torch.Tensor, units, dilations: Sequence[int] = 
     return x
 
 
+def pack_mma_weights(w: torch.Tensor) -> torch.Tensor:
+    """Conv weights (C_out, C_in, K) -> (K * C_in / 16, C_out / 16, 32, 8),
+    the order in which the bfloat16 kernels read them: the 16 x 16 block
+    (ci, co) of tap k as the B fragments of two m16n8k16 products, lane l
+    holding, for co % 16 = 8 h + l // 4 and h = 0, 1, the four values
+    ci % 16 = 2 (l % 4) + {0, 1, 8, 9}.  A permutation of the values;
+    ``unpack_mma_weights`` is its inverse."""
+    c_out, c_in, k = w.shape
+    if c_out % 16 or c_in % 16:
+        raise ValueError(f"pack_mma_weights needs widths that are multiples of 16, got {tuple(w.shape)}")
+    # [k][ci][co] with ci = 16 cib + 8 reg + 2 q + half and co = 16 n16 + 8 h + g
+    t = w.permute(2, 1, 0).reshape(k, c_in // 16, 2, 4, 2, c_out // 16, 2, 8)
+    # -> [k][cib][n16][g][q][h][reg][half]: lane = 4 g + q, value = 4 h + 2 reg + half
+    t = t.permute(0, 1, 5, 7, 3, 6, 2, 4)
+    return t.reshape(k * (c_in // 16), c_out // 16, 32, 8).contiguous()
+
+
+def unpack_mma_weights(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """The inverse of ``pack_mma_weights``: back to (C_out, C_in, K)."""
+    slabs, n16 = packed.shape[:2]
+    cib = slabs // k
+    t = packed.reshape(k, cib, n16, 8, 4, 2, 2, 2).permute(0, 1, 6, 4, 7, 2, 5, 3)
+    return t.reshape(k, cib * 16, n16 * 16).permute(2, 1, 0).contiguous()
+
+
+def kernel_weights(w: torch.Tensor) -> torch.Tensor:
+    """Conv weights (C_out, C_in, K) in the layout the kernels read for
+    their type: bfloat16 packed for the mma, float32 as [k][ci][co]."""
+    if w.dtype == torch.bfloat16:
+        return pack_mma_weights(w)
+    return w.permute(2, 1, 0).contiguous()
+
+
+def prepare_unit(p: Dict) -> Optional[Dict]:
+    """The kernel-layout weights of one unit, {"w1", "w2"}, to hand to
+    ``residual_unit`` / ``residual_stack`` as ``prepared`` beside ``p``;
+    None for a width the kernels do not take (not a multiple of 32)."""
+    if p["conv1"]["w"].shape[0] % 32:
+        return None
+    return {"w1": kernel_weights(p["conv1"]["w"]), "w2": kernel_weights(p["conv2"]["w"])}
+
+
+def _smem_ld(c: int, itemsize: int) -> int:
+    """Values from one shared-memory row to the next (smem_ld in resunit.cuh)."""
+    return c + MMA_PAD if itemsize == 2 else c
+
+
+def _stage_bytes(itemsize: int) -> int:
+    return MMA_STAGES * MMA_STAGE_BYTES if itemsize == 2 else 0
+
+
+def unit_smem_bytes(c: int, dilation: int, tile: int, itemsize: int) -> int:
+    """Shared memory of one K2 block (residual_unit_smem_bytes in
+    residual_unit.cu): h1 (tile + 6 d + 12 rows), h2 (tile + 12), the snake
+    scratch and, in bfloat16, the weight stages."""
+    rows = 2 * tile + 6 * dilation + 24
+    return (rows * _smem_ld(c, itemsize) * itemsize + SNAKE_SCRATCH_BYTES
+            + _stage_bytes(itemsize))
+
+
 @lru_cache(maxsize=None)
 def pick_tile(t_len: int, c: int, dilation: int, itemsize: int = 4) -> int:
-    """K2's output rows per block: the most useful rows per conv row
-    computed (tile / (RT * ceil((tile + 12) / RT))) that fit in shared
-    memory."""
-    smem = kernels.library("residual_unit").residual_unit_smem_bytes
+    """K2's output rows per block for an input of ``t_len`` rows.
+
+    float32: the most useful rows per conv row computed
+    (tile / (RT * ceil((tile + 12) / RT))) that fit in shared memory, at most
+    min(t_len, 128).  bfloat16: tile + 12, the dilated conv's rows, is a
+    multiple of the mma's 16 rows.  Every block streams all the weights
+    whatever its tile, so the tile is the largest of 100, 84, ..., 36 that
+    still gives three quarters of the card's SMs a block each and, below
+    C = 256 (256 threads a block), lets an SM hold two blocks; where none
+    does (a short input, or C = 512, whose tiles stop at 52-68), 20 rows
+    spread the input over the most blocks.  tools/torch_sweep_unit_tile.py
+    times every tile beside this choice."""
+    if itemsize == 2:
+        if c > MMA_MAX_C or unit_smem_bytes(c, dilation, MMA_SHORT_TILE, 2) > SMEM_LIMIT:
+            raise ValueError(f"residual_unit kernel: C={c}, d={dilation} does not fit in shared memory")
+        room = SMEM_LIMIT if c >= 256 else SM_SMEM_BYTES // 2 - 1024
+        for tile in range(MMA_LONG_TILE, MMA_SHORT_TILE, -MMA_M):
+            if (unit_smem_bytes(c, dilation, tile, 2) <= room
+                    and -(-t_len // tile) >= 3 * N_SMS // 4):
+                return tile
+        return MMA_SHORT_TILE
     best, best_eff = 0, -1.0
     for tile in range(1, min(128, max(t_len, 1)) + 1):
-        if smem(c, dilation, tile, itemsize) > SMEM_LIMIT:
+        if unit_smem_bytes(c, dilation, tile, itemsize) > SMEM_LIMIT:
             break
         eff = tile / (_RT * -(-(tile + 12) // _RT))
         if eff > best_eff + 1e-9:
@@ -72,43 +165,56 @@ def pick_tile(t_len: int, c: int, dilation: int, itemsize: int = 4) -> int:
 
 def stack_smem_bytes(c: int, tile: int, itemsize: int, dilations: Sequence[int] = STACK_DILATIONS) -> int:
     """Shared memory of one K3 block (residual_stack_smem_bytes in
-    residual_stack.cu): the buffers Y, H1 and H2 and the snake scratch."""
+    residual_stack.cu): the buffers Y, H1 and H2, the snake scratch and, in
+    bfloat16, the weight stages."""
     d1, d2, d3 = dilations
     n3 = tile
     n2 = n3 + 2 * (3 * d3 + 12)
     n1 = n2 + 2 * (3 * d2 + 12)
     h1 = max(n + 6 * d + 12 for n, d in ((n1, d1), (n2, d2), (n3, d3)))
-    return (n1 + h1 + n1 + 12) * c * itemsize + SNAKE_SCRATCH_BYTES
+    return ((n1 + h1 + n1 + 12) * _smem_ld(c, itemsize) * itemsize + SNAKE_SCRATCH_BYTES
+            + _stage_bytes(itemsize))
 
 
 def stack_tile(c: int, dtype: torch.dtype) -> Optional[int]:
     """K3's output rows per block at width ``c`` and io type ``dtype``, or
     None where the block's three units go to K2 one by one.  A function of
-    (c, dtype) alone: the largest multiple of 8 up to 256 whose three
-    buffers fit in a block's shared memory, and None below 64 rows (or for
-    a width or type the kernels do not take)."""
+    (c, dtype) alone: the largest multiple of 16 (the mma's rows; the
+    float32 conv's 8 divide it) up to 256 whose buffers fit in a block's
+    shared memory, and None below 64 rows (or for a width or type the
+    kernels do not take)."""
     if dtype not in kernels.IO_DTYPES or c <= 0 or c % 32:
         return None
     itemsize = 2 if dtype == torch.bfloat16 else 4
+    if itemsize == 2 and c > MMA_MAX_C:
+        return None
     tile = STACK_MAX_TILE
     while tile >= STACK_MIN_TILE and stack_smem_bytes(c, tile, itemsize) > SMEM_LIMIT:
-        tile -= _RT
+        tile -= MMA_M
     return tile if tile >= STACK_MIN_TILE else None
 
 
-def _unit_operands(x: torch.Tensor, p: Dict, c: int, prefix: str = "") -> list:
+def _unit_operands(x: torch.Tensor, p: Dict, c: int, prepared: Optional[Dict] = None,
+                   prefix: str = "") -> list:
     """Checks one unit's parameters against ``x`` and returns the eight
     tensors the kernels take, in the order of UnitParams (resunit.cuh):
-    the snakes' log alpha / beta as float32, the conv weights laid out
-    [k][ci][co] so that a warp's loads coalesce over output channels."""
+    the snakes' log alpha / beta as float32, and the conv weights in the
+    kernels' layout, taken from ``prepared`` (``prepare_unit(p)``) or laid
+    out here."""
     ops = []
-    for act, conv, k in (("act1", "conv1", 7), ("act2", "conv2", 1)):
+    for act, conv, k, key in (("act1", "conv1", 7, "w1"), ("act2", "conv2", 1, "w2")):
         la, lb = p[act]["alpha"].float(), p[act]["beta"].float()
         kernels.require(la, f"{prefix}{act}.alpha", (c,))
         kernels.require(lb, f"{prefix}{act}.beta", (c,))
-        kernels.require(p[conv]["w"], f"{prefix}{conv}.w", (c, c, k), x.dtype)
         kernels.require(p[conv]["b"], f"{prefix}{conv}.b", (c,), x.dtype)
-        ops += [la, lb, p[conv]["w"].permute(2, 1, 0).contiguous(), p[conv]["b"]]
+        if prepared is None:
+            kernels.require(p[conv]["w"], f"{prefix}{conv}.w", (c, c, k), x.dtype)
+            w = kernel_weights(p[conv]["w"])
+        else:
+            w = prepared[key]
+            shape = (k * c // 16, c // 16, 32, 8) if x.dtype == torch.bfloat16 else (k, c, c)
+            kernels.require(w, f"{prefix}prepared {key}", shape, x.dtype)
+        ops += [la, lb, w, p[conv]["b"]]
     return ops
 
 
@@ -120,15 +226,17 @@ def _check_x(x: torch.Tensor, what: str) -> None:
     kernels.require(x, "x")
 
 
-def residual_unit_cuda(x: torch.Tensor, p: Dict, dilation: int) -> torch.Tensor:
+def residual_unit_cuda(x: torch.Tensor, p: Dict, dilation: int, prepared: Optional[Dict] = None) -> torch.Tensor:
+    """One K2 launch at ``pick_tile``'s rows per block (the result has the
+    same bits at any tile that fits)."""
     _check_x(x, "residual_unit")
     b, t, c = x.shape
     d = int(dilation)
-    ops = _unit_operands(x, p, c)
+    ops = _unit_operands(x, p, c, prepared)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    tile = pick_tile(min(t, 128), c, d, x.element_size())
+    tile = pick_tile(t if x.dtype == torch.bfloat16 else min(t, 128), c, d, x.element_size())
     fn = kernels.library("residual_unit").residual_unit_launch
     err = fn(x.data_ptr(), kernels.pointers(ops), out.data_ptr(), b, t, c, d, tile,
              int(x.dtype == torch.bfloat16), kernels.stream_handle(x))
@@ -137,7 +245,8 @@ def residual_unit_cuda(x: torch.Tensor, p: Dict, dilation: int) -> torch.Tensor:
     return out
 
 
-def residual_stack_cuda(x: torch.Tensor, units, dilations: Sequence[int] = STACK_DILATIONS) -> torch.Tensor:
+def residual_stack_cuda(x: torch.Tensor, units, dilations: Sequence[int] = STACK_DILATIONS,
+                        prepared: Optional[List[Dict]] = None) -> torch.Tensor:
     """One K3 launch; raises where ``stack_tile`` admits no tile."""
     _check_x(x, "residual_stack")
     b, t, c = x.shape
@@ -147,7 +256,8 @@ def residual_stack_cuda(x: torch.Tensor, units, dilations: Sequence[int] = STACK
     tile = stack_tile(c, x.dtype)
     if tile is None:
         raise ValueError(f"residual_stack kernel: C={c}, {x.dtype} does not fit in shared memory")
-    ops = [op for i, p in enumerate(units) for op in _unit_operands(x, p, c, f"units[{i}].")]
+    ops = [op for i, p in enumerate(units)
+           for op in _unit_operands(x, p, c, prepared[i] if prepared else None, f"units[{i}].")]
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
@@ -159,23 +269,25 @@ def residual_stack_cuda(x: torch.Tensor, units, dilations: Sequence[int] = STACK
     return out
 
 
-def residual_unit(x: torch.Tensor, p: Dict, dilation: int) -> torch.Tensor:
+def residual_unit(x: torch.Tensor, p: Dict, dilation: int, prepared: Optional[Dict] = None) -> torch.Tensor:
     if x.device.type == "cpu":
         return residual_unit_reference(x, p, dilation)
-    return residual_unit_cuda(x, p, dilation)
+    return residual_unit_cuda(x, p, dilation, prepared)
 
 
 def residual_stack(x: torch.Tensor, units, dilations: Sequence[int] = STACK_DILATIONS,
-                   fuse: bool = False) -> torch.Tensor:
+                   fuse: bool = False, prepared: Optional[List[Dict]] = None) -> torch.Tensor:
     """A block's three residual units.  With ``fuse`` and where
     ``stack_tile(C, dtype)`` admits a tile they are one K3 launch, else
     one K2 launch each; a CPU tensor takes the plain chain either way
-    (both kernels compute exactly what it computes unit by unit)."""
+    (both kernels compute exactly what it computes unit by unit).
+    ``prepared`` is ``[prepare_unit(p) for p in units]`` where the caller
+    keeps it; without it the weights are laid out on every launch."""
     if x.device.type == "cpu":
         return residual_stack_reference(x, units, dilations)
     if (fuse and len(units) == 3 and tuple(int(d) for d in dilations) == STACK_DILATIONS
             and stack_tile(x.shape[2], x.dtype) is not None):
-        return residual_stack_cuda(x, units, dilations)
-    for p, d in zip(units, dilations):
-        x = residual_unit_cuda(x, p, int(d))
+        return residual_stack_cuda(x, units, dilations, prepared)
+    for i, (p, d) in enumerate(zip(units, dilations)):
+        x = residual_unit_cuda(x, p, int(d), prepared[i] if prepared else None)
     return x

@@ -116,7 +116,8 @@ class BucketedSampler:
         # a prompt longer than the largest seconds bucket arrives cut short
         wav_frames = torch.clamp(wav_frames, max=n_frames_total)
         pad_mask = mask_from_lengths(wav_frames, n_frames_total)
-        latents = encoder_forward(codec.enc_params, wav, codec.up_ratios_enc, codec.fuse_blocks)
+        latents = encoder_forward(codec.enc_params, wav, codec.up_ratios_enc, codec.fuse_blocks,
+                                  codec.enc_prepared)
         codes, timbre = analyze(codec.dec_params, latents, pad_mask)
         prompts = codes.permute(1, 0, 2).to(torch.int64)  # (B, n_q, T')
         if p_bucket <= n_frames_total:

@@ -4,6 +4,8 @@ Needs an NVIDIA Hopper GPU and nvcc; skips elsewhere.  Run on the card:
     python -m pytest tests/test_torch_cuda_kernels.py -q -m cuda
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -137,10 +139,65 @@ def test_residual_stack_kernel(device, t_len, c, dtype):
 
 def test_residual_stack_smem_formula_matches_the_source(device):
     from flamed_tts_tpu_torch import kernels
-    from flamed_tts_tpu_torch.ops.resunit import stack_smem_bytes
+    from flamed_tts_tpu_torch.ops.resunit import stack_smem_bytes, unit_smem_bytes
 
     fn = kernels.library("residual_stack").residual_stack_smem_bytes
+    unit_fn = kernels.library("residual_unit").residual_unit_smem_bytes
     for c in (32, 64, 128):
         for tile in (64, 160, 256):
             for itemsize in (2, 4):
                 assert fn(c, tile, 1, 3, 9, itemsize) == stack_smem_bytes(c, tile, itemsize)
+    for c in (32, 96, 512):
+        for d in (1, 3, 9):
+            for tile in (4, 12, 52, 116):
+                for itemsize in (2, 4):
+                    assert unit_fn(c, d, tile, itemsize) == unit_smem_bytes(c, d, tile, itemsize)
+
+
+# rows that end inside an mma tile of 16: one row, one short of and one past a
+# tile, the same around three tiles, and a length no K2 or K3 tile divides
+MMA_PADDING_T = [1, 15, 17, 47, 49, 333]
+
+
+@pytest.mark.parametrize("c", [32, 96, 512])
+@pytest.mark.parametrize("t_len", MMA_PADDING_T)
+def test_mma_padding_shapes_bf16(device, t_len, c):
+    """K2 in bf16 at lengths that leave the last mma tile ragged, at
+    dilations 1, 3, 9: against its plain version, and with the same bits
+    from another tile; K3 bit for bit equal to the three K2 launches where
+    stack_tile admits the width."""
+    from flamed_tts_tpu_torch.ops import resunit
+    from flamed_tts_tpu_torch.ops.resunit import (pick_tile, prepare_unit, residual_stack_cuda,
+                                                  residual_stack_reference, residual_unit_cuda,
+                                                  residual_unit_reference, stack_tile)
+
+    rng = np.random.RandomState(7 * t_len + c)
+    units = [_unit_params(rng, c, device, torch.bfloat16) for _ in range(3)]
+    x = _rand(rng, 2, t_len, c).to(device).bfloat16()
+    chain = x
+    for p, d in zip(units, (1, 3, 9)):
+        out = residual_unit_cuda(chain, p, d)
+        _assert_bf16_close(out, residual_unit_reference(chain, p, d))
+        other = 36 if pick_tile(t_len, c, d, 2) != 36 else 20
+        with mock.patch.object(resunit, "pick_tile", lambda *a: other):
+            assert torch.equal(out, residual_unit_cuda(chain, p, d))
+        assert torch.equal(out, residual_unit_cuda(chain, p, d, prepared=prepare_unit(p)))
+        chain = out
+    if stack_tile(c, torch.bfloat16) is None:
+        with pytest.raises(ValueError, match="does not fit"):
+            residual_stack_cuda(x, units)
+        return
+    out = residual_stack_cuda(x, units)
+    torch.cuda.synchronize()
+    assert torch.equal(out, chain)
+    assert torch.equal(out, residual_stack_cuda(x, units, prepared=[prepare_unit(p) for p in units]))
+    _assert_bf16_close(out, residual_stack_reference(x, units))
+
+
+def test_bf16_kernels_refuse_a_width_past_the_weight_stage(device):
+    from flamed_tts_tpu_torch.ops.resunit import residual_unit_cuda
+
+    rng = np.random.RandomState(3)
+    p = _unit_params(rng, 544, device, torch.bfloat16)
+    with pytest.raises(ValueError, match="does not fit"):
+        residual_unit_cuda(_rand(rng, 1, 40, 544).to(device).bfloat16(), p, 1)

@@ -93,7 +93,7 @@ def test_stack_plain_is_three_unit_calls(dtype):
 STACK_TILES = {  # (C, dtype) -> rows per K3 block, None where K2 takes the units
     (32, torch.float32): 256, (64, torch.float32): 160, (128, torch.float32): None,
     (256, torch.float32): None, (512, torch.float32): None,
-    (32, torch.bfloat16): 256, (64, torch.bfloat16): 256, (128, torch.bfloat16): 160,
+    (32, torch.bfloat16): 256, (64, torch.bfloat16): 256, (128, torch.bfloat16): 96,
     (256, torch.bfloat16): None, (512, torch.bfloat16): None,
 }
 
@@ -108,16 +108,19 @@ def test_stack_tile_table(c, dtype):
         assert stack_smem_bytes(c, resunit.STACK_MIN_TILE, itemsize) > SMEM_LIMIT
     else:
         assert stack_smem_bytes(c, tile, itemsize) <= SMEM_LIMIT == 232448
-        assert tile % 8 == 0 and resunit.STACK_MIN_TILE <= tile <= resunit.STACK_MAX_TILE
+        assert tile % 16 == 0 and resunit.STACK_MIN_TILE <= tile <= resunit.STACK_MAX_TILE
         # the next tile up does not fit, or is past the cap
-        assert tile == resunit.STACK_MAX_TILE or stack_smem_bytes(c, tile + 8, itemsize) > SMEM_LIMIT
+        assert tile == resunit.STACK_MAX_TILE or stack_smem_bytes(c, tile + 16, itemsize) > SMEM_LIMIT
 
 
 def test_stack_smem_formula():
     # Y (tile + 120 rows) + H1 (tile + 138) + H2 (tile + 132) at dilations (1, 3, 9),
-    # plus (2 * 32 + 10) * 32 floats of snake scratch
-    for c, tile, itemsize in [(32, 256, 4), (64, 160, 4), (128, 160, 2)]:
+    # plus (2 * 32 + 10) * 32 floats of snake scratch; in bfloat16 a row is 8 values
+    # longer and two 16 KB weight stages come on top
+    for c, tile, itemsize in [(32, 256, 4), (64, 160, 4)]:
         assert stack_smem_bytes(c, tile, itemsize) == (3 * tile + 390) * c * itemsize + 9472
+    for c, tile in [(32, 256), (128, 96), (128, 160)]:
+        assert stack_smem_bytes(c, tile, 2) == (3 * tile + 390) * (c + 8) * 2 + 9472 + 2 * 16384
 
 
 def test_stack_tile_is_a_pure_function_of_width_and_type():
