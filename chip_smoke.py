@@ -4,13 +4,14 @@
 
 Phases (any failure exits non-zero before the last line):
   1. build the CUDA kernels from flamed_tts_tpu_torch/csrc (nvcc, sm_90a)
-     and check in their SASS (cuobjdump) that the bf16 residual kernels hold
-     tensor-core instructions (HMMA / HGMMA) and the fp32 ones none;
+     and check in their SASS (cuobjdump) that every residual kernel, fp32 and
+     bf16, holds tensor-core instructions (HMMA / HGMMA);
   2. hold each kernel against its plain PyTorch version on the card, in
      fp32 and bf16, at the main paths' shapes and at edge shapes (for K2 and
-     K3 in bf16 also lengths that leave the last 16-row mma tile ragged);
-     hold the fused stack (K3) bit for bit against three single-unit (K2)
-     launches;
+     K3 also lengths that leave the last 16-row mma tile ragged); hold the
+     fused stack (K3) bit for bit against three single-unit (K2) launches;
+     print the fp32 K2's error against a float64 plain version beside the
+     fp32 plain version's own, at one main-path shape per width;
   3. drive the two main paths at full width (random prior/prob weights from
      seed 0, the trained codec in artifacts/codec_r5, a 3 s prompt, 64 + 64
      Euler steps), each with every kernel's launch count set to 0 just
@@ -21,13 +22,14 @@ Phases (any failure exits non-zero before the last line):
   4. break a warm call of each path down by stage and by device kernel
      (torch.profiler); check the outputs: a finite wav of tgt_len * 200
      samples, a short utterance on the card against the same on the CPU
-     (plain versions) for each path, and one forced overflow retry on B;
+     (plain versions) for each path, with the count of the prompt's RVQ codes
+     that differ between the two, and one forced overflow retry on B;
   5. at each main-path shape, hold the kernel against its plain version
      again and time both beside the kernel's bound: the kernel's device
      time from a CUDA graph replay, and per-call time from CUDA events
      around back-to-back calls, which includes the host's launch cost; K3
-     also beside three K2 launches at its shape, and K2 and K3 in bf16
-     beside what their scalar-FMA predecessors read; print the kernels line,
+     also beside three K2 launches at its shape, and K2 and K3 beside what
+     their scalar-FMA predecessors read; print the kernels line,
      the card's name and power limit, and last the device line.
 """
 
@@ -48,7 +50,14 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
-TOL = 1e-4  # fp32 both sides; sinf and the order of the FIR/conv sums differ
+# fp32 both sides.  What differs: the order of the FIR and conv sums; the
+# kernels' sin^2, which reduces its argument by the period pi and is within
+# 4e-7 of the exact value where the plain version's sin is within 1.2e-7
+# (tests/test_torch_tf32_layout.py), times 1 / beta; and the kernels' conv
+# products, three TF32 products of split operands, each about 2^-20 of a
+# product off where an fp32 FMA is exact (the [float64] lines show both
+# sides' distance from a float64 result).
+TOL = 1e-4
 # bf16 io: kernel and plain version round at the same places, but their fp32
 # sums differ in order, so a value near a rounding boundary may land one bf16
 # step away and the step feeds the next stage.  An element may be off by
@@ -69,20 +78,30 @@ REPLACES = {"snake_filtered": "flamed_tts_tpu/ops/pallas_resample.py:159",
             "residual_unit": "flamed_tts_tpu/ops/pallas_resunit.py:455",
             "residual_stack": "flamed_tts_tpu/ops/pallas_resunit.py:496"}
 DTYPE_NAMES = {torch.float32: "fp32", torch.bfloat16: "bf16"}
-# Device ms (CUDA graph replay) of the bf16 K2 and K3 while their convs were
-# scalar fp32 FMA loops, as this script read them on an NVIDIA H100 80GB HBM3
-# at 700.00 W before the tensor-core convs replaced the loops: (kernel, T, C,
+# Device ms (CUDA graph replay) of K2 and K3 while their convs were scalar
+# fp32 FMA loops, as this script read them on an NVIDIA H100 80GB HBM3 at
+# 700.00 W before the tensor-core convs replaced the loops (bf16: before
+# mma.sync m16n8k16; fp32: before the split-TF32 m16n8k8 products, with the
+# snakes already computing their samples in pairs): (dtype, kernel, T, C,
 # dilation or 0) -> ms.  Printed on the [time] log line of the same shape and
 # nowhere in the kernels line, which holds this run's measurements only.
 FMA_LOOP_MS = {
-    ("residual_unit", 1200, 256, 1): 1.842, ("residual_unit", 1200, 256, 3): 1.854,
-    ("residual_unit", 1200, 256, 9): 1.882, ("residual_unit", 12800, 256, 1): 1.869,
-    ("residual_unit", 12800, 256, 3): 1.879, ("residual_unit", 12800, 256, 9): 1.917,
-    ("residual_unit", 2560, 512, 1): 4.903, ("residual_unit", 2560, 512, 3): 4.385,
-    ("residual_unit", 2560, 512, 9): 3.748,
-    ("residual_stack", 48000, 32, 0): 0.6359, ("residual_stack", 24000, 64, 0): 0.9713,
-    ("residual_stack", 6000, 128, 0): 1.9490, ("residual_stack", 51200, 128, 0): 5.7814,
-    ("residual_stack", 102400, 64, 0): 3.7543,
+    ("bf16", "residual_unit", 1200, 256, 1): 1.842, ("bf16", "residual_unit", 1200, 256, 3): 1.854,
+    ("bf16", "residual_unit", 1200, 256, 9): 1.882, ("bf16", "residual_unit", 12800, 256, 1): 1.869,
+    ("bf16", "residual_unit", 12800, 256, 3): 1.879, ("bf16", "residual_unit", 12800, 256, 9): 1.917,
+    ("bf16", "residual_unit", 2560, 512, 1): 4.903, ("bf16", "residual_unit", 2560, 512, 3): 4.385,
+    ("bf16", "residual_unit", 2560, 512, 9): 3.748,
+    ("bf16", "residual_stack", 48000, 32, 0): 0.6359, ("bf16", "residual_stack", 24000, 64, 0): 0.9713,
+    ("bf16", "residual_stack", 6000, 128, 0): 1.9490, ("bf16", "residual_stack", 51200, 128, 0): 5.7814,
+    ("bf16", "residual_stack", 102400, 64, 0): 3.7543,
+    ("fp32", "residual_unit", 48000, 32, 1): 0.1011, ("fp32", "residual_unit", 48000, 32, 3): 0.1033, ("fp32", "residual_unit", 48000, 32, 9): 0.1056,
+    ("fp32", "residual_unit", 24000, 64, 1): 0.1739, ("fp32", "residual_unit", 24000, 64, 3): 0.1751, ("fp32", "residual_unit", 24000, 64, 9): 0.1804,
+    ("fp32", "residual_unit", 6000, 128, 1): 0.3679, ("fp32", "residual_unit", 6000, 128, 3): 0.3680, ("fp32", "residual_unit", 6000, 128, 9): 0.3797,
+    ("fp32", "residual_unit", 1200, 256, 1): 0.9033, ("fp32", "residual_unit", 1200, 256, 3): 0.7534, ("fp32", "residual_unit", 1200, 256, 9): 0.7373,
+    ("fp32", "residual_unit", 1280, 512, 1): 1.4121, ("fp32", "residual_unit", 1280, 512, 3): 1.2680, ("fp32", "residual_unit", 1280, 512, 9): 0.8833,
+    ("fp32", "residual_unit", 6400, 256, 1): 0.9198, ("fp32", "residual_unit", 6400, 256, 3): 0.7693, ("fp32", "residual_unit", 6400, 256, 9): 0.7476,
+    ("fp32", "residual_unit", 25600, 128, 1): 0.7237, ("fp32", "residual_unit", 25600, 128, 3): 0.7233, ("fp32", "residual_unit", 25600, 128, 9): 0.7486,
+    ("fp32", "residual_unit", 51200, 64, 1): 0.3296, ("fp32", "residual_unit", 51200, 64, 3): 0.3353, ("fp32", "residual_unit", 51200, 64, 9): 0.3499,
 }
 # lengths that end inside a 16-row mma tile: one row, one short of and one
 # past a tile, the same around three tiles, and one no K2 or K3 tile divides
@@ -296,7 +315,7 @@ def main() -> int:
     from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
     from flamed_tts_tpu_torch.models.flamed import Flamed
     from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
-    from flamed_tts_tpu_torch.ops.resunit import (pick_tile, residual_stack_cuda,
+    from flamed_tts_tpu_torch.ops.resunit import (pick_tile, prepare_unit, residual_stack_cuda,
                                                   residual_stack_reference, residual_unit_cuda,
                                                   residual_unit_reference, stack_smem_bytes,
                                                   stack_tile, unit_smem_bytes)
@@ -317,11 +336,11 @@ def main() -> int:
     counts = tensor_core_counts(kernels)
     for fn, n in counts.items():
         log(f"[sass] {fn}: {n} HMMA/HGMMA instructions")
-    bf16_fns = [fn for fn in counts if "bfloat16" in fn]
-    if (len(bf16_fns) < 2 or any(counts[fn] == 0 for fn in bf16_fns)
-            or any(n for fn, n in counts.items() if fn not in bf16_fns)):
-        raise AssertionError("the bf16 residual kernels must hold tensor-core instructions, "
-                             "the fp32 ones none")
+    # K2 and K3 each in fp32 ("If" in the mangled name) and bf16
+    if (sum("bfloat16" in fn for fn in counts) < 2 or sum("If" in fn for fn in counts) < 2
+            or any(n == 0 for n in counts.values())):
+        raise AssertionError("every residual kernel, fp32 and bf16, must hold tensor-core "
+                             "instructions")
 
     codec = FaCodec.from_pretrained(CODEC_DIR, device=dev)            # path A: fp32, K2 per unit
     codec_b = FaCodec.from_pretrained(CODEC_DIR, device=dev, fuse_blocks=True)
@@ -413,30 +432,53 @@ def main() -> int:
                                          "three residual_unit launches")
             log(f"[check] residual_stack {DTYPE_NAMES[dtype]} C={c} tile={tile}: equal to three "
                 f"residual_unit launches bit for bit at T = 1, 30, 149, 151, {3 * tile + 17}, 24000")
-    # K2 and K3 in bf16 where the last mma tile of 16 rows is ragged
+    # K2 and K3 where the last mma tile of 16 rows is ragged
     unit_fn = kernels.library("residual_unit").residual_unit_smem_bytes
-    for c in (32, 96, 512):
-        units = stack_args(c, torch.bfloat16)
-        for d in (1, 3, 9):
-            tile = pick_tile(333, c, d, 2)
-            if unit_fn(c, d, tile, 2) != unit_smem_bytes(c, d, tile, 2):
-                raise AssertionError("unit_smem_bytes disagrees with residual_unit.cu")
-        for t in MMA_PADDING_T:
-            x = rand(1, t, c, dtype=torch.bfloat16)
-            chain = x
-            for p, d in zip(units, (1, 3, 9)):
-                out = residual_unit_cuda(chain, p, d)
-                compare("residual_unit", out, residual_unit_reference(chain, p, d),
-                        f"(1, {t}, {c}) d={d} tile={pick_tile(t, c, d, 2)}")
-                chain = out
-            if stack_tile(c, torch.bfloat16) is not None:
-                out = residual_stack_cuda(x, units)
-                compare("residual_stack", out, residual_stack_reference(x, units), f"(1, {t}, {c})")
-                if not torch.equal(out, chain):
-                    raise AssertionError(f"residual_stack (1, {t}, {c}) bf16 is not bit for bit "
-                                         "three residual_unit launches")
-    log(f"[check] residual_unit / residual_stack bf16 at T = {MMA_PADDING_T}, C = 32, 96, 512: within "
-        f"tolerance, K3 equal to three K2 launches bit for bit at C = 32, 96")
+    for dtype in (torch.float32, torch.bfloat16):
+        item = 2 if dtype == torch.bfloat16 else 4
+        for c in (32, 96, 512):
+            units = stack_args(c, dtype)
+            for d in (1, 3, 9):
+                tile = pick_tile(333, c, d, item)
+                if unit_fn(c, d, tile, item) != unit_smem_bytes(c, d, tile, item):
+                    raise AssertionError("unit_smem_bytes disagrees with residual_unit.cu")
+            for t in MMA_PADDING_T:
+                x = rand(1, t, c, dtype=dtype)
+                chain = x
+                for p, d in zip(units, (1, 3, 9)):
+                    out = residual_unit_cuda(chain, p, d)
+                    compare("residual_unit", out, residual_unit_reference(chain, p, d),
+                            f"(1, {t}, {c}) d={d} tile={pick_tile(t, c, d, item)}")
+                    chain = out
+                if stack_tile(c, dtype) is not None:
+                    out = residual_stack_cuda(x, units)
+                    compare("residual_stack", out, residual_stack_reference(x, units), f"(1, {t}, {c})")
+                    if not torch.equal(out, chain):
+                        raise AssertionError(f"residual_stack (1, {t}, {c}) {dtype} is not bit for bit "
+                                             "three residual_unit launches")
+    log(f"[check] residual_unit / residual_stack fp32 and bf16 at T = {MMA_PADDING_T}, C = 32, 96, 512: "
+        f"within tolerance, K3 equal to three K2 launches bit for bit where stack_tile admits the "
+        f"width (fp32: C = 32; bf16: C = 32, 96)")
+
+    # the fp32 K2 (three TF32 products of split operands) and the fp32 plain
+    # version (cuDNN, TF32 off) against the plain version in float64, at one
+    # path A shape per width: does the split keep fp32's digits?
+    def to_double(tree):
+        if isinstance(tree, dict):
+            return {k: to_double(v) for k, v in tree.items()}
+        return tree.double()
+
+    for t, c in [(48000, 32), (24000, 64), (6000, 128), (1200, 256), (1280, 512)]:
+        x = rand(1, t, c)
+        for p, d in zip(stack_args(c), (1, 3, 9)):
+            exact = residual_unit_reference(x.double(), to_double(p), d)
+            err_k = float((residual_unit_cuda(x, p, d).double() - exact).abs().max())
+            err_p = float((residual_unit_reference(x, p, d).double() - exact).abs().max())
+            log(f"[float64] residual_unit fp32 (1, {t}, {c}) d={d}: max abs error against the float64 "
+                f"plain version: kernel {err_k:.3e}, fp32 plain version {err_p:.3e} "
+                f"(output peak {float(exact.abs().max()):.3f})")
+            if not err_k <= max(4 * err_p, 1e-5):
+                raise AssertionError("the fp32 residual_unit kernel lost digits against float64")
     torch.cuda.synchronize()
 
     # 3. the main paths
@@ -476,9 +518,14 @@ def main() -> int:
     c = cpu_model.sample(codec=cpu_codec, noise=noise, phonemes=PHONEMES[:10], fused=False, **short)
     err = float(np.abs(g["wav"] - c["wav"]).max()) if g["wav"].shape == c["wav"].shape else math.inf
     tol = 1e-5 + 1.0 / 32767
+    # the prompt's RVQ codes are an argmax over the encoder's output: the one
+    # discrete decision between the fp32 kernels and the wav
+    codes_g, codes_c = codec.encode_prompt(short["prompt_raw"])[0], cpu_codec.encode_prompt(short["prompt_raw"])[0]
     log(f"[reference A] short utterance card vs CPU: tgt_len {g['tgt_len'][0]} vs {c['tgt_len'][0]}, "
+        f"{int((codes_g != codes_c).sum())} of the prompt's {codes_g.size} RVQ codes differ, "
         f"wav max abs diff {err:.3e} (tol {tol:.3e}: fp32, cuBLAS/cuDNN and the kernels vs CPU "
-        f"summation order and sinf, 1e-5, then one step of the int16 PCM either side quantizes to)")
+        f"summation order, sin^2 and split-TF32 products, 1e-5, then one step of the int16 PCM either "
+        f"side quantizes to)")
     if not np.array_equal(g["tgt_len"], c["tgt_len"]) or not err <= tol:
         raise AssertionError("the card's short utterance disagrees with the CPU run (path A)")
 
@@ -567,13 +614,28 @@ def main() -> int:
                 row["three_unit_wall_ms"] = round(time_ms(lambda: three_units(x, p, w), reps), 4)
                 extra = (f", three residual_unit launches {row['three_unit_ms']:.4f} ms (graph) / "
                          f"{row['three_unit_wall_ms']:.4f} ms (per call)")
-            before = FMA_LOOP_MS.get((name, t, ch, d)) if dtype == torch.bfloat16 else None
+            before = FMA_LOOP_MS.get((DTYPE_NAMES[dtype], name, t, ch, d))
             if before is not None:
                 extra += f"; its scalar-FMA predecessor read {before} ms (graph)"
             rows[(t, ch, d)] = row
             log(f"[time] path {path} {name} {DTYPE_NAMES[dtype]} (1, {t}, {ch}) d={d}: kernel "
                 f"{k_ms:.4f} ms (graph) / {k_wall:.4f} ms (per call), plain {p_ms:.4f} ms (per call), "
                 f"bound {b_ms:.5f} ms ({b_by}){extra}")
+    # K3 in fp32 is on neither main path (path A launches K2 per unit): its
+    # time at the two encoder shapes stack_tile admits in fp32, beside three K2
+    # launches, on log lines only
+    for t, ch in [(48000, 32), (24000, 64)]:
+        units, x = stack_args(ch), rand(1, t, ch)
+        prepared = [prepare_unit(p) for p in units]
+        compare("residual_stack", residual_stack_cuda(x, units, prepared=prepared),
+                residual_stack_reference(x, units), f"off-path shape (1, {t}, {ch})")
+        k3 = graph_ms(lambda: residual_stack_cuda(x, units, prepared=prepared), 20)
+        k2 = graph_ms(lambda: three_units(x, units, prepared), 20)
+        p_ms = time_ms(lambda: residual_stack_reference(x, units), 20)
+        b_ms, b_by = bound_ms("residual_stack", t, ch, torch.float32)
+        log(f"[time] off-path residual_stack fp32 (1, {t}, {ch}) tile={stack_tile(ch, torch.float32)}: "
+            f"kernel {k3:.4f} ms (graph), three residual_unit launches {k2:.4f} ms (graph), plain "
+            f"{p_ms:.4f} ms (per call), bound {b_ms:.5f} ms ({b_by})")
     entries = []
     for (name, dtype_name, path), shapes in per.items():
         rows = list(shapes.values())

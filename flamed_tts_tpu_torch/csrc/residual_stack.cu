@@ -6,13 +6,14 @@
 // (residual_stack_pallas, bodies _stack_kernel / _stack_kernel_folded).
 //
 // Bound on the H100: operations, as for the single unit (three times its
-// FLOPs against one read and one write of the activation).  In bf16 the
-// convs run on the tensor cores (conv_mma in resunit.cuh), in fp32 as scalar
-// FMAs (conv_rows).  Either way the kernel redoes the halo rows, so its gain
-// over three single-unit launches is two round trips of (T, C) through
-// device memory and two launches, paid for with (n1 + n2 + n3) / (3 * TILE)
-// times the arithmetic and the snakes; in bf16, where the convs are cheap,
-// the snakes over the halo rows are the larger part of that price.
+// FLOPs against one read and one write of the activation).  The convs run on
+// the tensor cores in both io types (conv_mma in resunit.cuh: bf16 products,
+// or three TF32 products of split operands for fp32 io).  The kernel redoes
+// the halo rows, so its gain over three single-unit launches is two round
+// trips of (T, C) through device memory and two launches, paid for with
+// (n1 + n2 + n3) / (3 * TILE) times the arithmetic and the snakes; with the
+// convs cheap, the snakes over the halo rows are the larger part of that
+// price.
 //
 // Design: a block owns TILE output rows of one batch row.  Unit i needs
 // 3 * d_i + 12 rows of context a side, so the block computes
@@ -21,20 +22,20 @@
 //   unit 3 on n3 = TILE rows,
 // each with unit_rows (resunit.cuh), the very code of the single-unit
 // kernel, so an element gets the same bits as from three launches of it.
-// Shared memory holds three buffers of the io type (rows of C values in
-// fp32, of C + 8 in bf16, see resunit.cuh):
+// Shared memory holds three buffers of the io type (rows of C values and 16
+// bytes, see resunit.cuh):
 //   Y  (n1 rows): unit 1's output; unit 2 adds its branch to it in place
 //                 (its residual is read and its sum written by one thread);
 //   H1 (max over the units of n_i + 6 d_i + 12 rows): snake 1, then snake 2;
 //   H2 (n1 + 12 rows): the dilated conv's output;
-// plus the snake scratch and, in bf16, the two weight stages of conv_mma
-// (32 KB).  Unit 1 reads x from device memory, unit 3 writes
+// plus the two weight stages of conv_mma (32 KB).  Unit 1 reads x from
+// device memory, unit 3 writes
 // to it.  Per unit the global edges are handled where they arise: a row of
 // an intermediate outside [0, T) is zero for the next conv (snake_rows
 // writes the zero) and never read by the next snake, whose replicate pad
 // clamps to [0, T) of that intermediate, not of x.
-// 227 KB of shared memory limits the block to about (3 * TILE + 390) rows;
-// the host wrapper takes the stack only where a useful TILE fits (C <= 64 in
+// 227 KB of shared memory limits the block to (3 * TILE + 390) rows; the host
+// wrapper takes the stack only where a TILE of 64 or more fits (C <= 64 in
 // fp32, C <= 128 in bf16) and launches the single-unit kernel three times
 // elsewhere.
 #include "resunit.cuh"
@@ -64,7 +65,7 @@ __host__ __device__ inline StackRows stack_rows(int tile, int d1, int d2,
   return r;
 }
 
-template <typename IO, int CT, int THREADS>
+template <typename IO, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 residual_stack_kernel(const IO* __restrict__ x, StackParams<IO> prm,
                       IO* __restrict__ out, int T, int C, int tile) {
@@ -76,30 +77,28 @@ residual_stack_kernel(const IO* __restrict__ x, StackParams<IO> prm,
   IO* Y = reinterpret_cast<IO*>(smem);
   IO* H1 = Y + (size_t)rows.y * ld;
   IO* H2 = H1 + (size_t)rows.h1 * ld;
-  float* scr = reinterpret_cast<float*>(H2 + (size_t)rows.h2 * ld);
   unsigned char* stage =
-      reinterpret_cast<unsigned char*>(scr + SNAKE_SCRATCH_FLOATS);
+      reinterpret_cast<unsigned char*>(H2 + (size_t)rows.h2 * ld);
   const size_t batch = (size_t)blockIdx.y * T * C;
   const IO* xb = x + batch;
 
   const int a1 = t0 - (rows.n1 - tile) / 2;  // first row of Y
   const int a2 = t0 - (rows.n2 - tile) / 2;
   // unit 1: x (device memory) -> Y
-  unit_rows<IO, CT, THREADS>(GlobalRows<IO>{xb, C}, xb + (ptrdiff_t)a1 * C, C,
-                             Y, ld, a1, rows.n1, T, C, d1, prm.unit[0], H1, H2,
-                             ld, scr, stage);
+  unit_rows<IO, THREADS>(GlobalRows<IO>{xb, C}, xb + (ptrdiff_t)a1 * C, C, Y,
+                         ld, a1, rows.n1, T, C, d1, prm.unit[0], H1, H2, ld,
+                         stage);
   __syncthreads();
   // unit 2: Y -> Y, in place on its rows [a2, a2 + n2)
   IO* y2 = Y + (size_t)(a2 - a1) * ld;
-  unit_rows<IO, CT, THREADS>(SharedRows<IO>{Y, ld, a1}, y2, ld, y2, ld, a2,
-                             rows.n2, T, C, d2, prm.unit[1], H1, H2, ld, scr,
-                             stage);
+  unit_rows<IO, THREADS>(SharedRows<IO>{Y, ld, a1}, y2, ld, y2, ld, a2,
+                         rows.n2, T, C, d2, prm.unit[1], H1, H2, ld, stage);
   __syncthreads();
   // unit 3: Y -> out (device memory)
-  unit_rows<IO, CT, THREADS>(SharedRows<IO>{Y, ld, a1},
-                             Y + (size_t)(t0 - a1) * ld, ld,
-                             out + batch + (size_t)t0 * C, C, t0, rows.n3, T, C,
-                             d3, prm.unit[2], H1, H2, ld, scr, stage);
+  unit_rows<IO, THREADS>(SharedRows<IO>{Y, ld, a1},
+                         Y + (size_t)(t0 - a1) * ld, ld,
+                         out + batch + (size_t)t0 * C, C, t0, rows.n3, T, C, d3,
+                         prm.unit[2], H1, H2, ld, stage);
 }
 
 // itemsize: bytes of one io value (4 or 2).
@@ -107,11 +106,10 @@ extern "C" int residual_stack_smem_bytes(int C, int tile, int d1, int d2,
                                          int d3, int itemsize) {
   const StackRows r = stack_rows(tile, d1, d2, d3);
   return (int)((size_t)(r.y + r.h1 + r.h2) * smem_ld(C, itemsize) * itemsize +
-               SNAKE_SCRATCH_FLOATS * sizeof(float) +
-               conv_stage_bytes(itemsize));
+               conv_stage_bytes());
 }
 
-template <typename IO, int CT, int THREADS>
+template <typename IO, int THREADS>
 static int launch(const void* x, const void* const* p, void* out, int B, int T,
                   int C, int tile, const int* d, cudaStream_t stream) {
   const int smem =
@@ -119,7 +117,7 @@ static int launch(const void* x, const void* const* p, void* out, int B, int T,
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   static bool smem_set[MAX_DEVICES] = {};
   cudaError_t err =
-      allow_full_smem(residual_stack_kernel<IO, CT, THREADS>, smem_set);
+      allow_full_smem(residual_stack_kernel<IO, THREADS>, smem_set);
   if (err != cudaSuccess) return (int)err;
   StackParams<IO> prm;
   for (int i = 0; i < 3; ++i) {
@@ -130,34 +128,28 @@ static int launch(const void* x, const void* const* p, void* out, int B, int T,
     prm.d[i] = d[i];
   }
   const dim3 grid((T + tile - 1) / tile, B);
-  residual_stack_kernel<IO, CT, THREADS><<<grid, THREADS, smem, stream>>>(
+  residual_stack_kernel<IO, THREADS><<<grid, THREADS, smem, stream>>>(
       (const IO*)x, prm, (IO*)out, T, C, tile);
   return (int)cudaGetLastError();
 }
 
 // params: host array of 24 device pointers, 8 per unit in the order of
 // UnitParams (log alpha1, log beta1, w1t, b1, log alpha2, log beta2, w2t,
-// b2).  bf16 != 0 selects the bf16 io type, whose weights come in conv_mma's
-// packed order.  C must be a multiple of 32, and at most MMA_MAX_C in bf16.
+// b2), the weights in conv_mma's packed order for the io type.  bf16 != 0
+// selects the bf16 io type.  C must be a multiple of 32 and at most
+// MMA_MAX_C.
 extern "C" int residual_stack_launch(const void* x, const void* const* params,
                                      void* out, int B, int T, int C, int tile,
                                      int d1, int d2, int d3, int bf16,
                                      void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || C % 32 != 0 || tile <= 0 || d1 <= 0 ||
-      d2 <= 0 || d3 <= 0)
+  if (B <= 0 || T <= 0 || C <= 0 || C % 32 != 0 || C > MMA_MAX_C || tile <= 0 ||
+      d1 <= 0 || d2 <= 0 || d3 <= 0)
     return (int)cudaErrorInvalidValue;
   const int d[3] = {d1, d2, d3};
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16) {
-    if (C > MMA_MAX_C) return (int)cudaErrorInvalidValue;
-    // the three buffers leave an SM one block: 16 warps, not 8, to hide the
-    // snakes' latency
-    return launch<__nv_bfloat16, 1, 512>(x, params, out, B, T, C, tile, d, s);
-  }
-  // CT: groups of 32 output channels a warp of the fp32 conv owns
-  if (C % 128 == 0)
-    return launch<float, 4, 256>(x, params, out, B, T, C, tile, d, s);
-  if (C % 64 == 0)
-    return launch<float, 2, 256>(x, params, out, B, T, C, tile, d, s);
-  return launch<float, 1, 256>(x, params, out, B, T, C, tile, d, s);
+  // the three buffers leave an SM one block: 16 warps, not 8, to hide the
+  // snakes' latency
+  if (bf16)
+    return launch<__nv_bfloat16, 512>(x, params, out, B, T, C, tile, d, s);
+  return launch<float, 512>(x, params, out, B, T, C, tile, d, s);
 }

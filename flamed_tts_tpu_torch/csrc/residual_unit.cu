@@ -12,29 +12,29 @@
 // stages touches device memory; the halo rows (3d + 6 a side for snake 1, 6 a
 // side for the dilated conv) are recomputed per block.
 //
-// bf16 io: the convs are implicit GEMMs on the tensor cores (conv_mma in
-// resunit.cuh: mma.sync, A from the activation tile in shared memory by
-// ldmatrix, B from weights packed on the host and streamed from L2 through
-// two cp.async stages).  With the convs cheap, what bounds the kernel is
-// (a) shared memory: (2 * TILE + 6d + 24) rows of C + 8 values, the snake
-// scratch and 32 KB of weight stages must fit 227 KB, which caps TILE at 52
-// for C = 512; (b) the weights, 16 C^2 bytes that every block streams
-// once per pass whatever its TILE, so small tiles pay them more often; and
-// (c) the number of blocks: a short input at a large TILE leaves most of the
-// 132 SMs idle.  The host wrapper (pick_tile in ops/resunit.py) takes
-// TILE + 12 a multiple of 16, the mma's M: the largest TILE up to 100 that
-// gives three quarters of the SMs a block (and two blocks an SM below
-// C = 256), else 20.
-//
-// fp32 io keeps scalar fp32 FMAs (conv_rows): each warp owns RT rows x
-// (32 * CT) output channels, reads its weights coalesced from a [k][ci][co]
-// copy and four input channels at a time as one broadcast load from shared
-// memory.  It is bound by the rate of its loads; TF32 tensor-core
-// products would not keep the digits the fp32 path is held to.
+// The convs are implicit GEMMs on the tensor cores in both io types
+// (conv_mma in resunit.cuh: mma.sync, bf16 operands or, for fp32 io, three
+// TF32 products of split operands that keep fp32's digits; A from the
+// activation tile in shared memory by ldmatrix, B from weights packed on the
+// host and streamed from L2 through two cp.async stages).  With the convs on
+// the tensor cores, what bounds the kernel is (a) shared memory:
+// (2 * TILE + 6d + 24) rows of C values + 16 bytes and 32 KB of weight stages
+// must fit 227 KB, which at C = 512 caps TILE at 52 in bf16 and, in fp32, at
+// 20 for d <= 3 and 4 for d = 9; (b) the weights, 16 C^2 bytes in bf16 and
+// 32 C^2 in fp32, that every block streams once per pass whatever its TILE,
+// so small tiles pay them more often; (c) the number of blocks: a short input
+// at a large TILE leaves most of the 132 SMs idle; and (d) the two snakes
+// (snake.cuh), which are a large part of a unit's time at C <= 256.  The host
+// wrapper (pick_tile in ops/resunit.py) takes TILE + 12 a multiple of 16, the
+// mma's M: the largest TILE up to 100 that gives three quarters of the SMs a
+// block (and two blocks an SM where rows are under 512 bytes), else 20, else
+// 4.
 #include "resunit.cuh"
 
-template <typename IO, int CT, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+// A block of 256 threads shares its SM with a second one (pick_tile leaves
+// it half the shared memory), so it may use half the registers.
+template <typename IO, int THREADS>
+__global__ void __launch_bounds__(THREADS, THREADS == 256 ? 2 : 1)
 residual_unit_kernel(const IO* __restrict__ x, UnitParams<IO> u,
                      IO* __restrict__ out, int T, int C, int d, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -42,65 +42,59 @@ residual_unit_kernel(const IO* __restrict__ x, UnitParams<IO> u,
   const int ld = smem_ld(C, (int)sizeof(IO));
   IO* h1 = reinterpret_cast<IO*>(smem);
   IO* h2 = h1 + (size_t)unit_h1_rows(tile, d) * ld;
-  float* scr = reinterpret_cast<float*>(h2 + (size_t)unit_h2_rows(tile) * ld);
   unsigned char* stage =
-      reinterpret_cast<unsigned char*>(scr + SNAKE_SCRATCH_FLOATS);
+      reinterpret_cast<unsigned char*>(h2 + (size_t)unit_h2_rows(tile) * ld);
   const size_t batch = (size_t)blockIdx.y * T * C;
   const IO* xb = x + batch;
-  unit_rows<IO, CT, THREADS>(GlobalRows<IO>{xb, C}, xb + (size_t)t0 * C, C,
-                    out + batch + (size_t)t0 * C, C, t0, tile, T, C, d, u, h1,
-                    h2, ld, scr, stage);
+  unit_rows<IO, THREADS>(GlobalRows<IO>{xb, C}, xb + (size_t)t0 * C, C,
+                         out + batch + (size_t)t0 * C, C, t0, tile, T, C, d, u,
+                         h1, h2, ld, stage);
 }
 
 // itemsize: bytes of one io value (4 or 2).
 extern "C" int residual_unit_smem_bytes(int C, int d, int tile, int itemsize) {
   return (int)((size_t)(unit_h1_rows(tile, d) + unit_h2_rows(tile)) *
                    smem_ld(C, itemsize) * itemsize +
-               SNAKE_SCRATCH_FLOATS * sizeof(float) +
-               conv_stage_bytes(itemsize));
+               conv_stage_bytes());
 }
 
-template <typename IO, int CT, int THREADS>
+template <typename IO, int THREADS>
 static int launch(const void* x, const void* const* p, void* out, int B, int T,
                   int C, int d, int tile, cudaStream_t stream) {
   const int smem = residual_unit_smem_bytes(C, d, tile, (int)sizeof(IO));
   if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   static bool smem_set[MAX_DEVICES] = {};
   cudaError_t err =
-      allow_full_smem(residual_unit_kernel<IO, CT, THREADS>, smem_set);
+      allow_full_smem(residual_unit_kernel<IO, THREADS>, smem_set);
   if (err != cudaSuccess) return (int)err;
   const UnitParams<IO> u = {(const float*)p[0], (const float*)p[1],
                             (const IO*)p[2],    (const IO*)p[3],
                             (const float*)p[4], (const float*)p[5],
                             (const IO*)p[6],    (const IO*)p[7]};
   const dim3 grid((T + tile - 1) / tile, B);
-  residual_unit_kernel<IO, CT, THREADS><<<grid, THREADS, smem, stream>>>(
+  residual_unit_kernel<IO, THREADS><<<grid, THREADS, smem, stream>>>(
       (const IO*)x, u, (IO*)out, T, C, d, tile);
   return (int)cudaGetLastError();
 }
 
 // params: host array of 8 device pointers, in the order of UnitParams
-// (log alpha1, log beta1, w1t, b1, log alpha2, log beta2, w2t, b2).
-// bf16 != 0 selects the bf16 io type, whose weights come in conv_mma's
-// packed order.  C must be a multiple of 32, and at most MMA_MAX_C in bf16.
+// (log alpha1, log beta1, w1t, b1, log alpha2, log beta2, w2t, b2), the
+// weights in conv_mma's packed order for the io type.  bf16 != 0 selects the
+// bf16 io type.  C must be a multiple of 32 and at most MMA_MAX_C.
 extern "C" int residual_unit_launch(const void* x, const void* const* params,
                                     void* out, int B, int T, int C, int d,
                                     int tile, int bf16, void* stream) {
-  if (B <= 0 || T <= 0 || C <= 0 || C % 32 != 0 || d <= 0 || tile <= 0)
+  if (B <= 0 || T <= 0 || C <= 0 || C % 32 != 0 || C > MMA_MAX_C || d <= 0 ||
+      tile <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  // from rows of 512 bytes on, shared memory leaves an SM one block: 16 warps
+  // then hide the snakes' and the weight copies' latency better than 8
   if (bf16) {
-    if (C > MMA_MAX_C) return (int)cudaErrorInvalidValue;
-    // from C = 256 on, shared memory leaves an SM one block: 16 warps then
-    // hide the snakes' and the weight copies' latency better than 8
     if (C >= 256)
-      return launch<__nv_bfloat16, 1, 512>(x, params, out, B, T, C, d, tile, s);
-    return launch<__nv_bfloat16, 1, 256>(x, params, out, B, T, C, d, tile, s);
+      return launch<__nv_bfloat16, 512>(x, params, out, B, T, C, d, tile, s);
+    return launch<__nv_bfloat16, 256>(x, params, out, B, T, C, d, tile, s);
   }
-  // CT: groups of 32 output channels a warp of the fp32 conv owns
-  if (C % 128 == 0)
-    return launch<float, 4, 256>(x, params, out, B, T, C, d, tile, s);
-  if (C % 64 == 0)
-    return launch<float, 2, 256>(x, params, out, B, T, C, d, tile, s);
-  return launch<float, 1, 256>(x, params, out, B, T, C, d, tile, s);
+  if (C >= 128) return launch<float, 512>(x, params, out, B, T, C, d, tile, s);
+  return launch<float, 256>(x, params, out, B, T, C, d, tile, s);
 }

@@ -181,9 +181,11 @@ def pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def require(t: torch.Tensor, what: str, shape=None, dtype=None) -> None:
+def require(t: torch.Tensor, what: str, shape=None, dtype=None, aligned: bool = False) -> None:
     """The wrappers' input check: CUDA, float32 or bfloat16 (exactly
-    ``dtype`` where one is given), contiguous, shape."""
+    ``dtype`` where one is given), contiguous, shape; with ``aligned``
+    also a first element on a 16-byte boundary, for a kernel that loads
+    and stores several values at once."""
     if not t.is_cuda:
         raise ValueError(f"{what} must be a CUDA tensor")
     if t.dtype not in IO_DTYPES:
@@ -192,5 +194,7 @@ def require(t: torch.Tensor, what: str, shape=None, dtype=None) -> None:
         raise ValueError(f"{what} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{what} must be aligned to 16 bytes")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}")

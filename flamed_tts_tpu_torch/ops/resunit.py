@@ -8,12 +8,15 @@ kernels (csrc/residual_unit.cu, csrc/residual_stack.cu):
 versions (the separate-op chain); ``residual_unit`` and ``residual_stack``
 run the kernels for a CUDA tensor and the plain chain for a CPU tensor.
 
-In float32 the kernels' convs are scalar FMAs over weights laid out
-[k][ci][co]; in bfloat16 they are tensor-core products (``mma.sync``
-m16n8k16) over weights packed into the order of the mma B fragments
-(``pack_mma_weights``).  ``kernel_weights`` makes either layout and
-``prepare_unit`` both of a unit, so that a caller who keeps its parameters
-(``FaCodec``) lays them out once and not on every launch.
+The kernels' convs are tensor-core products (``mma.sync``) in both io
+types: bfloat16 operands in bfloat16, and in float32 three TF32 products of
+operands split into two TF32 halves each, which keep float32's digits.  What
+bounds a launch then is shared memory (at C = 512 a float32 block holds 96
+rows: 20 output rows at d <= 3, 4 at d = 9), the weights every block streams
+whole, and the two snakes (csrc/resunit.cuh says more).  The weights are
+packed into the order of the mma B fragments (``pack_mma_weights``);
+``prepare_unit`` packs both convs of a unit, so that a caller who keeps its
+parameters (``FaCodec``) lays them out once and not on every launch.
 
 The io type is that of ``x`` (float32 or bfloat16) and the conv weights and
 biases must have it too.  Sums are float32; in bfloat16 a value is rounded
@@ -36,15 +39,15 @@ from flamed_tts_tpu_torch.ops.conv1d import conv1d
 from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper (SMEM_LIMIT in resunit.cuh)
-SNAKE_SCRATCH_BYTES = (2 * 32 + 10) * 32 * 4  # SNAKE_SCRATCH_FLOATS in snake.cuh
-_RT = 8  # rows per work item of the float32 conv (RT in resunit.cuh)
-MMA_M = 16  # rows of one mma.sync tile: the bfloat16 convs compute rows in multiples of it
-MMA_PAD = 8  # bfloat16 values added to a shared-memory row (MMA_PAD in resunit.cuh)
+MMA_M = 16  # rows of one mma.sync tile: the convs compute rows in multiples of it
+MMA_PAD_BYTES = 16  # added to a shared-memory row (MMA_PAD_BYTES in resunit.cuh)
+MMA_STEP_BYTES = 32  # of an activation row that one K step multiplies: 16 bfloat16 or 8 float32 channels
 MMA_STAGE_BYTES = 16384  # one weight stage (MMA_STAGE_BYTES in resunit.cuh)
-MMA_STAGES = 2  # weight stages of the bfloat16 convs (MMA_STAGES in resunit.cuh)
-MMA_MAX_C = 512  # widest bfloat16 conv the kernels take (MMA_MAX_C in resunit.cuh)
-MMA_LONG_TILE = 100  # K2's bfloat16 tile for a long input: the fastest of the sweep at every long shape
-MMA_SHORT_TILE = 20  # and for an input too short to give the SMs a block each at a larger one
+MMA_STAGES = 2  # weight stages of the convs (MMA_STAGES in resunit.cuh)
+MMA_MAX_C = 512  # widest conv the kernels take (MMA_MAX_C in resunit.cuh)
+MMA_LONG_TILE = 100  # K2's tile for a long input: the fastest of the bfloat16 sweep at every long shape
+MMA_SHORT_TILES = (20, 4)  # for an input too short to give the SMs a block each at a larger one: the first that fits
+ONE_BLOCK_ROW_BYTES = 512  # from rows this long on the kernels run 512 threads a block, one block an SM
 N_SMS = 132  # streaming multiprocessors of an H100
 SM_SMEM_BYTES = 233472  # shared memory of one SM (228 KB); a resident block takes 1 KB more than it asks for
 STACK_DILATIONS = (1, 3, 9)
@@ -69,36 +72,41 @@ def residual_stack_reference(x: torch.Tensor, units, dilations: Sequence[int] = 
 
 
 def pack_mma_weights(w: torch.Tensor) -> torch.Tensor:
-    """Conv weights (C_out, C_in, K) -> (K * C_in / 16, C_out / 16, 32, 8),
-    the order in which the bfloat16 kernels read them: the 16 x 16 block
-    (ci, co) of tap k as the B fragments of two m16n8k16 products, lane l
-    holding, for co % 16 = 8 h + l // 4 and h = 0, 1, the four values
-    ci % 16 = 2 (l % 4) + {0, 1, 8, 9}.  A permutation of the values;
-    ``unpack_mma_weights`` is its inverse."""
+    """Conv weights (C_out, C_in, K) -> (K * C_in / S, C_out / 16, 32, V), the
+    order in which the kernels read them.  S = 16 (bfloat16) or 8 (float32)
+    input channels make one K step of the mma, and a lane's V = 8 or 4 values
+    are 16 bytes, one shared-memory load: its B fragments of the S x 16 block
+    (ci, co) of tap k, for the two n8 tiles h = 0, 1 of the block's output
+    channels, co % 16 = 8 h + l // 4.  Each fragment is two 32-bit registers
+    reg = 0, 1 of R = 2 bfloat16 values or 1 float32 value (which the kernel
+    splits into TF32 halves): ci % S = S / 2 * reg + R * (l % 4) + {0 .. R - 1},
+    that is 2 (l % 4) + {0, 1, 8, 9} for m16n8k16 and l % 4 + {0, 4} for
+    m16n8k8.  A permutation of the values; ``unpack_mma_weights`` is its
+    inverse."""
     c_out, c_in, k = w.shape
+    if w.dtype not in kernels.IO_DTYPES:
+        raise ValueError(f"pack_mma_weights takes float32 or bfloat16, got {w.dtype}")
     if c_out % 16 or c_in % 16:
         raise ValueError(f"pack_mma_weights needs widths that are multiples of 16, got {tuple(w.shape)}")
-    # [k][ci][co] with ci = 16 cib + 8 reg + 2 q + half and co = 16 n16 + 8 h + g
-    t = w.permute(2, 1, 0).reshape(k, c_in // 16, 2, 4, 2, c_out // 16, 2, 8)
-    # -> [k][cib][n16][g][q][h][reg][half]: lane = 4 g + q, value = 4 h + 2 reg + half
-    t = t.permute(0, 1, 5, 7, 3, 6, 2, 4)
-    return t.reshape(k * (c_in // 16), c_out // 16, 32, 8).contiguous()
+    r = 4 // w.element_size()
+    # [k][ci][co] with ci = 8 r cib + 4 r reg + r q + half and co = 16 n16 + 8 h + g
+    t = w.permute(2, 1, 0).reshape(k, c_in // (8 * r), 2, 4, r, c_out // 16, 2, 8)
+    # -> [k][cib][n16][g][q][h][reg][half]: lane = 4 g + q, value = 2 r h + r reg + half
+    return t.permute(0, 1, 5, 7, 3, 6, 2, 4).reshape(k * (c_in // (8 * r)), c_out // 16, 32, 4 * r).contiguous()
 
 
 def unpack_mma_weights(packed: torch.Tensor, k: int) -> torch.Tensor:
     """The inverse of ``pack_mma_weights``: back to (C_out, C_in, K)."""
     slabs, n16 = packed.shape[:2]
-    cib = slabs // k
-    t = packed.reshape(k, cib, n16, 8, 4, 2, 2, 2).permute(0, 1, 6, 4, 7, 2, 5, 3)
-    return t.reshape(k, cib * 16, n16 * 16).permute(2, 1, 0).contiguous()
+    cib, r = slabs // k, 4 // packed.element_size()
+    t = packed.reshape(k, cib, n16, 8, 4, 2, 2, r).permute(0, 1, 6, 4, 7, 2, 5, 3)
+    return t.reshape(k, cib * 8 * r, n16 * 16).permute(2, 1, 0).contiguous()
 
 
-def kernel_weights(w: torch.Tensor) -> torch.Tensor:
-    """Conv weights (C_out, C_in, K) in the layout the kernels read for
-    their type: bfloat16 packed for the mma, float32 as [k][ci][co]."""
-    if w.dtype == torch.bfloat16:
-        return pack_mma_weights(w)
-    return w.permute(2, 1, 0).contiguous()
+def packed_shape(c: int, k: int, dtype: torch.dtype) -> tuple:
+    """Shape of ``pack_mma_weights`` of a (c, c, k) weight of ``dtype``."""
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    return (k * c * itemsize // MMA_STEP_BYTES, c // 16, 32, 16 // itemsize)
 
 
 def prepare_unit(p: Dict) -> Optional[Dict]:
@@ -107,87 +115,68 @@ def prepare_unit(p: Dict) -> Optional[Dict]:
     None for a width the kernels do not take (not a multiple of 32)."""
     if p["conv1"]["w"].shape[0] % 32:
         return None
-    return {"w1": kernel_weights(p["conv1"]["w"]), "w2": kernel_weights(p["conv2"]["w"])}
+    return {"w1": pack_mma_weights(p["conv1"]["w"]), "w2": pack_mma_weights(p["conv2"]["w"])}
 
 
-def _smem_ld(c: int, itemsize: int) -> int:
-    """Values from one shared-memory row to the next (smem_ld in resunit.cuh)."""
-    return c + MMA_PAD if itemsize == 2 else c
-
-
-def _stage_bytes(itemsize: int) -> int:
-    return MMA_STAGES * MMA_STAGE_BYTES if itemsize == 2 else 0
+def _row_bytes(c: int, itemsize: int) -> int:
+    """Bytes from one shared-memory row to the next (smem_ld in resunit.cuh)."""
+    return c * itemsize + MMA_PAD_BYTES
 
 
 def unit_smem_bytes(c: int, dilation: int, tile: int, itemsize: int) -> int:
     """Shared memory of one K2 block (residual_unit_smem_bytes in
-    residual_unit.cu): h1 (tile + 6 d + 12 rows), h2 (tile + 12), the snake
-    scratch and, in bfloat16, the weight stages."""
-    rows = 2 * tile + 6 * dilation + 24
-    return (rows * _smem_ld(c, itemsize) * itemsize + SNAKE_SCRATCH_BYTES
-            + _stage_bytes(itemsize))
+    residual_unit.cu): h1 (tile + 6 d + 12 rows), h2 (tile + 12) and the
+    weight stages."""
+    return (2 * tile + 6 * dilation + 24) * _row_bytes(c, itemsize) + MMA_STAGES * MMA_STAGE_BYTES
 
 
 @lru_cache(maxsize=None)
 def pick_tile(t_len: int, c: int, dilation: int, itemsize: int = 4) -> int:
-    """K2's output rows per block for an input of ``t_len`` rows.
+    """K2's output rows per block for an input of ``t_len`` rows of
+    ``itemsize`` bytes a value.
 
-    float32: the most useful rows per conv row computed
-    (tile / (RT * ceil((tile + 12) / RT))) that fit in shared memory, at most
-    min(t_len, 128).  bfloat16: tile + 12, the dilated conv's rows, is a
-    multiple of the mma's 16 rows.  Every block streams all the weights
-    whatever its tile, so the tile is the largest of 100, 84, ..., 36 that
-    still gives three quarters of the card's SMs a block each and, below
-    C = 256 (256 threads a block), lets an SM hold two blocks; where none
-    does (a short input, or C = 512, whose tiles stop at 52-68), 20 rows
-    spread the input over the most blocks.  tools/torch_sweep_unit_tile.py
-    times every tile beside this choice."""
-    if itemsize == 2:
-        if c > MMA_MAX_C or unit_smem_bytes(c, dilation, MMA_SHORT_TILE, 2) > SMEM_LIMIT:
-            raise ValueError(f"residual_unit kernel: C={c}, d={dilation} does not fit in shared memory")
-        room = SMEM_LIMIT if c >= 256 else SM_SMEM_BYTES // 2 - 1024
-        for tile in range(MMA_LONG_TILE, MMA_SHORT_TILE, -MMA_M):
-            if (unit_smem_bytes(c, dilation, tile, 2) <= room
-                    and -(-t_len // tile) >= 3 * N_SMS // 4):
-                return tile
-        return MMA_SHORT_TILE
-    best, best_eff = 0, -1.0
-    for tile in range(1, min(128, max(t_len, 1)) + 1):
-        if unit_smem_bytes(c, dilation, tile, itemsize) > SMEM_LIMIT:
-            break
-        eff = tile / (_RT * -(-(tile + 12) // _RT))
-        if eff > best_eff + 1e-9:
-            best, best_eff = tile, eff
-    if best == 0:
+    tile + 12, the dilated conv's rows, is a multiple of the mma's 16 rows.
+    Every block streams all the weights whatever its tile, so the tile is
+    the largest of 100, 84, ..., 36 that still gives three quarters of the
+    card's SMs a block each and, where rows are under 512 bytes (256 threads
+    a block), lets an SM hold two blocks; where none does (a short input, or
+    C = 512, whose tiles stop at 52-68 in bfloat16 and 20 in float32), 20
+    rows spread the input over the most blocks, and where 20 do not fit
+    (float32, C = 512, d = 9) 4 rows.  tools/torch_sweep_unit_tile.py times
+    every tile beside this choice."""
+    if c > MMA_MAX_C or unit_smem_bytes(c, dilation, MMA_SHORT_TILES[-1], itemsize) > SMEM_LIMIT:
         raise ValueError(f"residual_unit kernel: C={c}, d={dilation} does not fit in shared memory")
-    return best
+    room = SMEM_LIMIT if c * itemsize >= ONE_BLOCK_ROW_BYTES else SM_SMEM_BYTES // 2 - 1024
+    for tile in range(MMA_LONG_TILE, MMA_SHORT_TILES[0], -MMA_M):
+        if (unit_smem_bytes(c, dilation, tile, itemsize) <= room
+                and -(-t_len // tile) >= 3 * N_SMS // 4):
+            return tile
+    return next(tile for tile in MMA_SHORT_TILES
+                if unit_smem_bytes(c, dilation, tile, itemsize) <= SMEM_LIMIT)
 
 
 def stack_smem_bytes(c: int, tile: int, itemsize: int, dilations: Sequence[int] = STACK_DILATIONS) -> int:
     """Shared memory of one K3 block (residual_stack_smem_bytes in
-    residual_stack.cu): the buffers Y, H1 and H2, the snake scratch and, in
-    bfloat16, the weight stages."""
+    residual_stack.cu): the buffers Y, H1 and H2 and the weight stages."""
     d1, d2, d3 = dilations
     n3 = tile
     n2 = n3 + 2 * (3 * d3 + 12)
     n1 = n2 + 2 * (3 * d2 + 12)
     h1 = max(n + 6 * d + 12 for n, d in ((n1, d1), (n2, d2), (n3, d3)))
-    return ((n1 + h1 + n1 + 12) * _smem_ld(c, itemsize) * itemsize + SNAKE_SCRATCH_BYTES
-            + _stage_bytes(itemsize))
+    return (n1 + h1 + n1 + 12) * _row_bytes(c, itemsize) + MMA_STAGES * MMA_STAGE_BYTES
 
 
 def stack_tile(c: int, dtype: torch.dtype) -> Optional[int]:
     """K3's output rows per block at width ``c`` and io type ``dtype``, or
     None where the block's three units go to K2 one by one.  A function of
-    (c, dtype) alone: the largest multiple of 16 (the mma's rows; the
-    float32 conv's 8 divide it) up to 256 whose buffers fit in a block's
-    shared memory, and None below 64 rows (or for a width or type the
-    kernels do not take)."""
-    if dtype not in kernels.IO_DTYPES or c <= 0 or c % 32:
+    (c, dtype) alone: the largest multiple of 16 (the mma's rows) up to 256
+    whose buffers fit in a block's shared memory, and None below 64 rows (or
+    for a width or type the kernels do not take).  That is 256 rows at
+    C = 32, 112 at C = 64 and None from C = 128 on in float32; 256, 256, 112
+    at C = 32, 64, 128 and None from C = 256 on in bfloat16."""
+    if dtype not in kernels.IO_DTYPES or c <= 0 or c % 32 or c > MMA_MAX_C:
         return None
     itemsize = 2 if dtype == torch.bfloat16 else 4
-    if itemsize == 2 and c > MMA_MAX_C:
-        return None
     tile = STACK_MAX_TILE
     while tile >= STACK_MIN_TILE and stack_smem_bytes(c, tile, itemsize) > SMEM_LIMIT:
         tile -= MMA_M
@@ -206,14 +195,13 @@ def _unit_operands(x: torch.Tensor, p: Dict, c: int, prepared: Optional[Dict] = 
         la, lb = p[act]["alpha"].float(), p[act]["beta"].float()
         kernels.require(la, f"{prefix}{act}.alpha", (c,))
         kernels.require(lb, f"{prefix}{act}.beta", (c,))
-        kernels.require(p[conv]["b"], f"{prefix}{conv}.b", (c,), x.dtype)
+        kernels.require(p[conv]["b"], f"{prefix}{conv}.b", (c,), x.dtype, aligned=True)
         if prepared is None:
             kernels.require(p[conv]["w"], f"{prefix}{conv}.w", (c, c, k), x.dtype)
-            w = kernel_weights(p[conv]["w"])
+            w = pack_mma_weights(p[conv]["w"])
         else:
             w = prepared[key]
-            shape = (k * c // 16, c // 16, 32, 8) if x.dtype == torch.bfloat16 else (k, c, c)
-            kernels.require(w, f"{prefix}prepared {key}", shape, x.dtype)
+            kernels.require(w, f"{prefix}prepared {key}", packed_shape(c, k, x.dtype), x.dtype, aligned=True)
         ops += [la, lb, w, p[conv]["b"]]
     return ops
 
@@ -223,7 +211,7 @@ def _check_x(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
     if x.shape[2] % 32:
         raise ValueError(f"{what} kernel needs C % 32 == 0, got C={x.shape[2]}")
-    kernels.require(x, "x")
+    kernels.require(x, "x", aligned=True)
 
 
 def residual_unit_cuda(x: torch.Tensor, p: Dict, dilation: int, prepared: Optional[Dict] = None) -> torch.Tensor:
@@ -236,7 +224,7 @@ def residual_unit_cuda(x: torch.Tensor, p: Dict, dilation: int, prepared: Option
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    tile = pick_tile(t if x.dtype == torch.bfloat16 else min(t, 128), c, d, x.element_size())
+    tile = pick_tile(t, c, d, x.element_size())
     fn = kernels.library("residual_unit").residual_unit_launch
     err = fn(x.data_ptr(), kernels.pointers(ops), out.data_ptr(), b, t, c, d, tile,
              int(x.dtype == torch.bfloat16), kernels.stream_handle(x))

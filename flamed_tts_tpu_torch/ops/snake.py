@@ -20,7 +20,7 @@ def snake_filtered_cuda(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torc
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
     b, t, c = x.shape
-    kernels.require(x, "x")
+    kernels.require(x, "x", aligned=c % 64 == 0)  # two channels a lane there
     log_alpha, log_beta = log_alpha.float(), log_beta.float()
     kernels.require(log_alpha, "log_alpha", (c,))
     kernels.require(log_beta, "log_beta", (c,))

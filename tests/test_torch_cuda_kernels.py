@@ -12,7 +12,9 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
-# fp32 on both sides; sinf and the order of the conv sums differ
+# fp32 on both sides; the order of the sums differs, the kernels' sin^2 reduces
+# its argument by the period pi, and their conv products are three TF32
+# products of split operands (about 2^-21 of a product off)
 ATOL = RTOL = 1e-4
 # bf16 io: kernel and plain version round at the same places, but their
 # fp32 sums differ in order, so a value near a rounding boundary may land
@@ -37,8 +39,10 @@ def _rand(rng, *shape, scale=1.0):
     return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32))
 
 
+# from (20, 8) on: the shapes the TPU kernel is held to in tests/test_pallas_kernels.py
 @pytest.mark.parametrize("t_len,c", [(1, 64), (2, 64), (5, 64), (20, 64), (300, 16),
-                                     (2000, 512), (4097, 96)])
+                                     (2000, 512), (4097, 96), (20, 8), (511, 32), (257, 64),
+                                     (130, 128)])
 def test_snake_filtered_kernel(device, t_len, c):
     from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
     from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
@@ -65,6 +69,35 @@ def test_residual_unit_kernel(device, t_len, c, d):
     x = _rand(rng, 2, t_len, c).to(device)
     torch.testing.assert_close(residual_unit_cuda(x, p, d), residual_unit_reference(x, p, d),
                                atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("d", [1, 3, 9])
+@pytest.mark.parametrize("c", [32, 64, 128, 256, 512])
+def test_residual_unit_kernel_fp32_widths(device, c, d):
+    """The split-TF32 convs at every width and dilation of the codec, two
+    batch rows, a length no tile divides."""
+    from flamed_tts_tpu_torch.ops.resunit import residual_unit_cuda, residual_unit_reference
+
+    rng = np.random.RandomState(100 * c + d)
+    p = _unit_params(rng, c, device)
+    x = _rand(rng, 2, 333, c).to(device)
+    torch.testing.assert_close(residual_unit_cuda(x, p, d), residual_unit_reference(x, p, d),
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_residual_unit_kernel_fp32_sums_of_one_sign(device):
+    """Weights and input of one sign make every partial sum of the dilated
+    conv grow with its length, 7 x 512 terms: a running sum kept on the
+    tensor cores, which add by truncation, drifts out of the tolerance
+    here."""
+    from flamed_tts_tpu_torch.ops.resunit import residual_unit_cuda, residual_unit_reference
+
+    rng = np.random.RandomState(512)
+    p = _unit_params(rng, 512, device)
+    p["conv1"]["w"] = p["conv1"]["w"].abs()
+    x = _rand(rng, 1, 200, 512).abs().to(device)
+    ref = residual_unit_reference(x, p, 3)
+    torch.testing.assert_close(residual_unit_cuda(x, p, 3), ref, atol=ATOL, rtol=RTOL)
 
 
 def _unit_params(rng, c, device, dtype=torch.float32):
@@ -159,31 +192,40 @@ def test_residual_stack_smem_formula_matches_the_source(device):
 MMA_PADDING_T = [1, 15, 17, 47, 49, 333]
 
 
-@pytest.mark.parametrize("c", [32, 96, 512])
-@pytest.mark.parametrize("t_len", MMA_PADDING_T)
-def test_mma_padding_shapes_bf16(device, t_len, c):
-    """K2 in bf16 at lengths that leave the last mma tile ragged, at
-    dilations 1, 3, 9: against its plain version, and with the same bits
-    from another tile; K3 bit for bit equal to the three K2 launches where
-    stack_tile admits the width."""
-    from flamed_tts_tpu_torch.ops import resunit
-    from flamed_tts_tpu_torch.ops.resunit import (pick_tile, prepare_unit, residual_stack_cuda,
-                                                  residual_stack_reference, residual_unit_cuda,
-                                                  residual_unit_reference, stack_tile)
+def _assert_close(out, ref):
+    if out.dtype == torch.bfloat16:
+        _assert_bf16_close(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
 
+
+def _check_mma_padding_shapes(device, t_len, c, dtype):
+    """K2 at a length that leaves the last mma tile ragged, at dilations 1,
+    3, 9: against its plain version, and with the same bits from another
+    tile; K3 bit for bit equal to the three K2 launches where stack_tile
+    admits the width."""
+    from flamed_tts_tpu_torch.ops import resunit
+    from flamed_tts_tpu_torch.ops.resunit import (SMEM_LIMIT, pick_tile, prepare_unit,
+                                                  residual_stack_cuda, residual_stack_reference,
+                                                  residual_unit_cuda, residual_unit_reference,
+                                                  stack_tile, unit_smem_bytes)
+
+    itemsize = 2 if dtype == torch.bfloat16 else 4
     rng = np.random.RandomState(7 * t_len + c)
-    units = [_unit_params(rng, c, device, torch.bfloat16) for _ in range(3)]
-    x = _rand(rng, 2, t_len, c).to(device).bfloat16()
+    units = [_unit_params(rng, c, device, dtype) for _ in range(3)]
+    x = _rand(rng, 2, t_len, c).to(device).to(dtype)
     chain = x
     for p, d in zip(units, (1, 3, 9)):
         out = residual_unit_cuda(chain, p, d)
-        _assert_bf16_close(out, residual_unit_reference(chain, p, d))
-        other = 36 if pick_tile(t_len, c, d, 2) != 36 else 20
+        _assert_close(out, residual_unit_reference(chain, p, d))
+        # another tile that fits, a whole number of mma tiles or not
+        other = next(tile for tile in (36, 20, 4, 7) if tile != pick_tile(t_len, c, d, itemsize)
+                     and unit_smem_bytes(c, d, tile, itemsize) <= SMEM_LIMIT)
         with mock.patch.object(resunit, "pick_tile", lambda *a: other):
             assert torch.equal(out, residual_unit_cuda(chain, p, d))
         assert torch.equal(out, residual_unit_cuda(chain, p, d, prepared=prepare_unit(p)))
         chain = out
-    if stack_tile(c, torch.bfloat16) is None:
+    if stack_tile(c, dtype) is None:
         with pytest.raises(ValueError, match="does not fit"):
             residual_stack_cuda(x, units)
         return
@@ -191,13 +233,26 @@ def test_mma_padding_shapes_bf16(device, t_len, c):
     torch.cuda.synchronize()
     assert torch.equal(out, chain)
     assert torch.equal(out, residual_stack_cuda(x, units, prepared=[prepare_unit(p) for p in units]))
-    _assert_bf16_close(out, residual_stack_reference(x, units))
+    _assert_close(out, residual_stack_reference(x, units))
 
 
-def test_bf16_kernels_refuse_a_width_past_the_weight_stage(device):
+@pytest.mark.parametrize("c", [32, 96, 512])
+@pytest.mark.parametrize("t_len", MMA_PADDING_T)
+def test_mma_padding_shapes_bf16(device, t_len, c):
+    _check_mma_padding_shapes(device, t_len, c, torch.bfloat16)
+
+
+@pytest.mark.parametrize("c", [32, 64, 512])
+@pytest.mark.parametrize("t_len", MMA_PADDING_T)
+def test_mma_padding_shapes_fp32(device, t_len, c):
+    _check_mma_padding_shapes(device, t_len, c, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_bf16_kernels_refuse_a_width_past_the_weight_stage(device, dtype):
     from flamed_tts_tpu_torch.ops.resunit import residual_unit_cuda
 
     rng = np.random.RandomState(3)
-    p = _unit_params(rng, 544, device, torch.bfloat16)
+    p = _unit_params(rng, 544, device, dtype)
     with pytest.raises(ValueError, match="does not fit"):
-        residual_unit_cuda(_rand(rng, 1, 40, 544).to(device).bfloat16(), p, 1)
+        residual_unit_cuda(_rand(rng, 1, 40, 544).to(device).to(dtype), p, 1)

@@ -1,5 +1,6 @@
-"""The host side of the bfloat16 tensor-core convs of K2 and K3: the packing
-of the weights into mma B fragments, the tile choosers, the shared-memory
+"""The host side of the tensor-core convs of K2 and K3: the packing of the
+weights into mma B fragments (the bfloat16 order here, the float32 order in
+tests/test_torch_tf32_layout.py), the tile choosers, the shared-memory
 formulas, and the kernel-layout weights ``FaCodec`` keeps beside its
 parameters.  All on the CPU; the kernels themselves are held to the plain
 versions in tests/test_torch_cuda_kernels.py on the card."""
@@ -11,7 +12,7 @@ import torch
 from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
 from flamed_tts_tpu_torch.ops import resunit
 from flamed_tts_tpu_torch.ops.conv1d import conv1d
-from flamed_tts_tpu_torch.ops.resunit import (MMA_M, SMEM_LIMIT, kernel_weights, pack_mma_weights,
+from flamed_tts_tpu_torch.ops.resunit import (MMA_M, SMEM_LIMIT, pack_mma_weights, packed_shape,
                                               pick_tile, prepare_unit, residual_stack,
                                               residual_stack_reference, residual_unit, stack_smem_bytes,
                                               stack_tile, unit_smem_bytes, unpack_mma_weights)
@@ -35,14 +36,17 @@ def _units(rng, c, dtype=torch.float32):
 @pytest.mark.parametrize("k", [7, 1])
 @pytest.mark.parametrize("c", [32, 96, 512])
 def test_pack_round_trips_and_permutes(c, k):
-    w = torch.arange(c * c * k, dtype=torch.float32).reshape(c, c, k)
-    packed = pack_mma_weights(w)
-    assert packed.shape == (k * c // 16, c // 16, 32, 8) and packed.is_contiguous()
-    assert torch.equal(unpack_mma_weights(packed, k), w)
-    # every value exactly once
-    assert torch.equal(packed.flatten().sort().values, w.flatten())
-    bf = pack_mma_weights(w.to(torch.bfloat16))
-    assert bf.dtype == torch.bfloat16 and torch.equal(bf, packed.to(torch.bfloat16))
+    # bfloat16 holds the integers up to 256: position i carries i % 251 and i // 251 % 251
+    # in two tensors, which together name the position
+    i = torch.arange(c * c * k).reshape(c, c, k)
+    lo, hi = (i % 251).to(torch.bfloat16), (i // 251 % 251).to(torch.bfloat16)
+    packed_lo, packed_hi = pack_mma_weights(lo), pack_mma_weights(hi)
+    assert packed_lo.shape == (k * c // 16, c // 16, 32, 8) == packed_shape(c, k, torch.bfloat16)
+    assert packed_lo.is_contiguous() and packed_lo.dtype == torch.bfloat16
+    assert torch.equal(unpack_mma_weights(packed_lo, k), lo) and torch.equal(unpack_mma_weights(packed_hi, k), hi)
+    # every position exactly once
+    where = (packed_lo.float() + 251 * packed_hi.float()).flatten().long()
+    assert torch.equal(where.sort().values % (251 * 251), (torch.arange(c * c * k) % (251 * 251)).sort().values)
 
 
 @pytest.mark.parametrize("c", [32, 96])
@@ -52,7 +56,7 @@ def test_packed_order_is_the_mma_b_fragment(c):
     h = 1, holding rows ci % 16 = 2 (l % 4) + {0, 1} (+ 8 for b1) of column
     co % 16 = 8 h + l // 4, as mma.sync m16n8k16 wants its B operand."""
     rng = np.random.RandomState(c)
-    w = torch.from_numpy(rng.randn(c, c, 7).astype(np.float32))
+    w = torch.from_numpy(rng.randn(c, c, 7).astype(np.float32)).bfloat16()
     packed = pack_mma_weights(w)
     s, n16, lane, e = np.meshgrid(np.arange(7 * c // 16), np.arange(c // 16), np.arange(32),
                                   np.arange(8), indexing="ij")
@@ -70,25 +74,28 @@ def test_slab_order_product_is_the_conv(c, dil):
     slab's 16 x C block read back from the packed order."""
     rng = np.random.RandomState(dil)
     rows = 40
-    w = torch.from_numpy(rng.randn(c, c, 7).astype(np.float32)) / np.sqrt(7 * c)
+    w = (torch.from_numpy(rng.randn(c, c, 7).astype(np.float32)) / np.sqrt(7 * c)).bfloat16()
     x = torch.from_numpy(rng.randn(rows + 6 * dil, c).astype(np.float32))  # zero pad not needed: valid rows only
     packed = pack_mma_weights(w)
-    blocks = unpack_mma_weights(packed, 7).permute(2, 1, 0)  # [tap][ci][co]
+    blocks = unpack_mma_weights(packed, 7).permute(2, 1, 0).float()  # [tap][ci][co]
     acc = torch.zeros(rows, c)
     for s in range(packed.shape[0]):
         tap, cib = divmod(s, c // 16)
         acc += x[tap * dil: tap * dil + rows, cib * 16: cib * 16 + 16] @ blocks[tap, cib * 16: cib * 16 + 16]
-    ref = conv1d(x[None], w, dilation=dil)[0]
+    ref = conv1d(x[None], w.float(), dilation=dil)[0]
     torch.testing.assert_close(acc, ref, atol=1e-5, rtol=1e-5)
 
 
 def test_kernel_weights_layout_follows_the_type():
     rng = np.random.RandomState(0)
     w = torch.from_numpy(rng.randn(32, 32, 7).astype(np.float32))
-    assert torch.equal(kernel_weights(w), w.permute(2, 1, 0).contiguous())
-    assert torch.equal(kernel_weights(w.bfloat16()), pack_mma_weights(w.bfloat16()))
+    # a K step is 32 bytes of an activation row: 8 float32 or 16 bfloat16 input channels
+    assert pack_mma_weights(w).shape == (28, 2, 32, 4) and pack_mma_weights(w).dtype == torch.float32
+    assert pack_mma_weights(w.bfloat16()).shape == (14, 2, 32, 8)
     with pytest.raises(ValueError, match="multiples of 16"):
         pack_mma_weights(torch.zeros(24, 24, 7))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pack_mma_weights(w.double())
     p = _units(rng, 24)[0]
     assert prepare_unit(p) is None  # a width the kernels do not take
 
@@ -98,12 +105,11 @@ def test_kernel_weights_layout_follows_the_type():
 def test_tile_choosers_on_the_main_paths(t_len, c, dtype):
     itemsize = 2 if dtype == torch.bfloat16 else 4
     for d in (1, 3, 9):
-        tile = pick_tile(t_len if itemsize == 2 else min(t_len, 128), c, d, itemsize)
-        assert 1 <= tile <= 128
+        tile = pick_tile(t_len, c, d, itemsize)
+        assert 1 <= tile <= 100
         assert unit_smem_bytes(c, d, tile, itemsize) <= SMEM_LIMIT
-        if itemsize == 2:
-            # the dilated conv's rows are whole mma tiles
-            assert (tile + 12) % MMA_M == 0
+        # the dilated conv's rows are whole mma tiles
+        assert (tile + 12) % MMA_M == 0
     tile = stack_tile(c, dtype)
     if tile is not None:
         assert tile % MMA_M == 0 and stack_smem_bytes(c, tile, itemsize) <= SMEM_LIMIT
@@ -112,32 +118,38 @@ def test_tile_choosers_on_the_main_paths(t_len, c, dtype):
 
 
 def test_pick_tile_values():
-    # float32: unchanged by the tensor-core convs (the FMA loop's tiles)
-    assert [pick_tile(128, 32, d, 4) for d in (1, 3, 9)] == [124, 124, 124]
-    assert [pick_tile(128, 512, d, 4) for d in (1, 3, 9)] == [36, 28, 12]
-    assert pick_tile(30, 64, 1, 4) == 28
-    # bfloat16: the largest tile up to 100 that gives 99 of the 132 SMs a block
-    # (and below C = 256 two blocks an SM), else 20
+    # the largest tile up to 100 that gives 99 of the 132 SMs a block (and with
+    # rows under 512 bytes two blocks an SM), else 20, else 4.  float32: rows are
+    # twice as long, so C = 512 holds 96 rows, 20 output rows at d <= 3 and 4 at d = 9
+    assert [pick_tile(48000, 32, d, 4) for d in (1, 3, 9)] == [100, 100, 100]
+    assert [pick_tile(1280, 512, d, 4) for d in (1, 3, 9)] == [20, 20, 4]
+    assert [pick_tile(6400, 256, d, 4) for d in (1, 3, 9)] == [52, 52, 52]
+    assert [pick_tile(12800, 256, d, 4) for d in (1, 3, 9)] == [68, 68, 52]
+    assert pick_tile(30, 64, 1, 4) == 20
+    assert unit_smem_bytes(512, 9, 4, 4) <= SMEM_LIMIT < unit_smem_bytes(512, 9, 20, 4)
+    # bfloat16
     assert [pick_tile(2560, 512, d, 2) for d in (1, 3, 9)] == [20, 20, 20]
     assert [pick_tile(1200, 256, d, 2) for d in (1, 3, 9)] == [20, 20, 20]
     assert [pick_tile(12800, 256, d, 2) for d in (1, 3, 9)] == [100, 100, 100]
     assert [pick_tile(6000, 128, d, 2) for d in (1, 3, 9)] == [52, 52, 52]
-    assert [pick_tile(51200, 128, d, 2) for d in (1, 3, 9)] == [100, 100, 84]
+    assert [pick_tile(51200, 128, d, 2) for d in (1, 3, 9)] == [100, 100, 100]
     assert [pick_tile(102400, 64, d, 2) for d in (1, 3, 9)] == [100, 100, 100]
     assert pick_tile(1, 32, 1, 2) == 20
     # the largest tile that fits C = 512, d = 9 beside the weight stages
     assert unit_smem_bytes(512, 9, 52, 2) <= SMEM_LIMIT < unit_smem_bytes(512, 9, 68, 2)
     with pytest.raises(ValueError, match="does not fit"):
         pick_tile(100, 544, 1, 2)  # past the widest conv a weight stage holds
-    assert stack_tile(544, torch.bfloat16) is None
+    with pytest.raises(ValueError, match="does not fit"):
+        pick_tile(100, 544, 1, 4)
+    assert stack_tile(544, torch.bfloat16) is None and stack_tile(544, torch.float32) is None
 
 
 def test_unit_smem_formula():
-    # h1 (tile + 6 d + 12 rows) + h2 (tile + 12) + the snake scratch; in bfloat16
-    # rows of C + 8 values and two 16 KB weight stages
-    for c, d, tile in [(32, 1, 124), (512, 9, 12), (96, 3, 52)]:
-        assert unit_smem_bytes(c, d, tile, 4) == (2 * tile + 6 * d + 24) * c * 4 + 9472
-        assert unit_smem_bytes(c, d, tile, 2) == (2 * tile + 6 * d + 24) * (c + 8) * 2 + 9472 + 32768
+    # h1 (tile + 6 d + 12 rows) + h2 (tile + 12), rows of C values and 16 bytes, and
+    # two 16 KB weight stages
+    for c, d, tile in [(32, 1, 100), (512, 9, 4), (96, 3, 52)]:
+        assert unit_smem_bytes(c, d, tile, 4) == (2 * tile + 6 * d + 24) * (c + 4) * 4 + 32768
+        assert unit_smem_bytes(c, d, tile, 2) == (2 * tile + 6 * d + 24) * (c + 8) * 2 + 32768
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -165,8 +177,8 @@ def test_codec_keeps_kernel_layout_weights_beside_its_parameters():
             for blk, ws in zip(params["blocks"], prepared):
                 for unit, w in zip(blk["res"], ws):
                     assert w["w1"].dtype == w["w2"].dtype == dtype
-                    assert torch.equal(w["w1"], kernel_weights(unit["conv1"]["w"]))
-                    assert torch.equal(w["w2"], kernel_weights(unit["conv2"]["w"]))
+                    assert torch.equal(w["w1"], pack_mma_weights(unit["conv1"]["w"]))
+                    assert torch.equal(w["w2"], pack_mma_weights(unit["conv2"]["w"]))
                     assert "w1" not in unit and "kernel" not in unit  # beside the tree, not in it
 
     check(torch.float32)

@@ -91,9 +91,9 @@ def test_stack_plain_is_three_unit_calls(dtype):
 
 
 STACK_TILES = {  # (C, dtype) -> rows per K3 block, None where K2 takes the units
-    (32, torch.float32): 256, (64, torch.float32): 160, (128, torch.float32): None,
+    (32, torch.float32): 256, (64, torch.float32): 112, (128, torch.float32): None,
     (256, torch.float32): None, (512, torch.float32): None,
-    (32, torch.bfloat16): 256, (64, torch.bfloat16): 256, (128, torch.bfloat16): 96,
+    (32, torch.bfloat16): 256, (64, torch.bfloat16): 256, (128, torch.bfloat16): 112,
     (256, torch.bfloat16): None, (512, torch.bfloat16): None,
 }
 
@@ -115,12 +115,11 @@ def test_stack_tile_table(c, dtype):
 
 def test_stack_smem_formula():
     # Y (tile + 120 rows) + H1 (tile + 138) + H2 (tile + 132) at dilations (1, 3, 9),
-    # plus (2 * 32 + 10) * 32 floats of snake scratch; in bfloat16 a row is 8 values
-    # longer and two 16 KB weight stages come on top
-    for c, tile, itemsize in [(32, 256, 4), (64, 160, 4)]:
-        assert stack_smem_bytes(c, tile, itemsize) == (3 * tile + 390) * c * itemsize + 9472
-    for c, tile in [(32, 256), (128, 96), (128, 160)]:
-        assert stack_smem_bytes(c, tile, 2) == (3 * tile + 390) * (c + 8) * 2 + 9472 + 2 * 16384
+    # rows of C values and 16 bytes, plus two 16 KB weight stages
+    for c, tile in [(32, 256), (64, 112), (64, 160)]:
+        assert stack_smem_bytes(c, tile, 4) == (3 * tile + 390) * (c + 4) * 4 + 2 * 16384
+    for c, tile in [(32, 256), (128, 112), (128, 160)]:
+        assert stack_smem_bytes(c, tile, 2) == (3 * tile + 390) * (c + 8) * 2 + 2 * 16384
 
 
 def test_stack_tile_is_a_pure_function_of_width_and_type():
@@ -128,7 +127,7 @@ def test_stack_tile_is_a_pure_function_of_width_and_type():
     assert stack_tile(64, torch.float16) is None       # not an io type of the kernels
     assert stack_tile(64, torch.float64) is None
     assert stack_tile(0, torch.float32) is None
-    assert [stack_tile(64, torch.float32) for _ in range(3)] == [160] * 3
+    assert [stack_tile(64, torch.float32) for _ in range(3)] == [112] * 3
 
 
 def test_stack_wrapper_refuses_what_the_kernel_does_not_take():
