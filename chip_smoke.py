@@ -29,12 +29,32 @@ Phases (any failure exits non-zero before the last line):
      time from a CUDA graph replay, and per-call time from CUDA events
      around back-to-back calls, which includes the host's launch cost; K3
      also beside three K2 launches at its shape, and K2 and K3 beside what
-     their scalar-FMA predecessors read; print the kernels line,
-     the card's name and power limit, and last the device line.
+     their scalar-FMA predecessors read;
+  6. the training path: fabricate 32 utterances of 3-16 s (wav + "phones"
+     TextGrid, one of 15.6 s for the 17 s bucket); precompute them on the
+     card (codec_r5, fp32: K1 and K2 at up to (272000, 32)), with launch
+     counts asserted; the 15.6 s utterance analysed again with its launches
+     counted and its codes held equal to the CPU's; K1 / K2 held against
+     their plain versions at (272000, 32) and (136000, 64); 30 steps of
+     ``python -m flamed_tts_tpu_torch.train`` at the full width of
+     configs/*.yaml, batch 16, with validation audio (K1, K2; launches held
+     to the decodes it reports); the loss on one fixed batch falling over
+     20 steps at lr 1e-3, and a warm step of it broken down (forward,
+     backward, AdamW; FLOPs; profiler); one deterministic step on the card
+     against the same on the CPU; resume for 2 steps from train_state.pt
+     and serve an utterance from last.npz; then K1 and K2 held against
+     their plain versions and timed as in phase 5 at the shapes of one 17 s
+     utterance's analysis and of the validation audio's decodes.  The
+     precompute and the trainer run under PyTorch's own TF32 switches
+     (cuDNN convolutions in TF32 by default), every comparison and every
+     other phase with TF32 off.  Last: the kernels line (paths A, B,
+     precompute and validation), the card's name and power limit, the
+     device line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -106,6 +126,12 @@ FMA_LOOP_MS = {
 # lengths that end inside a 16-row mma tile: one row, one short of and one
 # past a tile, the same around three tiles, and one no K2 or K3 tile divides
 MMA_PADDING_T = (1, 15, 17, 47, 49, 333)
+TRAIN_UTTERANCES = 32  # the training phase's synthetic corpus
+TRAIN_STEPS = 30
+# PyTorch's own TF32 switches (matmul, cuDNN), read before main() turns TF32
+# off for the comparisons: the precompute and the trainer are timed under
+# these, as whoever starts them on their own runs them
+DEFAULT_TF32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
 
 def log(*a):
@@ -119,6 +145,22 @@ def prompt_wav(seconds: float, seed: int = 0) -> np.ndarray:
     phase = 2 * np.pi * np.cumsum(f0) / 16000.0
     wav = sum(np.sin(k * phase) / k for k in range(1, 6)) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t) ** 2)
     return (0.2 * wav + 0.01 * rng.randn(t.size)).astype(np.float32)
+
+
+@contextlib.contextmanager
+def tf32(matmul: bool, cudnn: bool):
+    """PyTorch's TF32 switches set for the span, then put back."""
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+def tf32_label() -> str:
+    return (f"TF32 matmul {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}, cuDNN "
+            f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -193,38 +235,348 @@ def tensor_core_counts(kernels) -> dict:
     return counts
 
 
-def main_path_calls(codec, n_samples: int, f_bucket: int) -> list:
+def encoder_calls(codec, n_samples: int) -> list:
     """(kernel, T, C, dilation or 0, params, prepared weights or None) of
-    every kernel call in one Flamed.sample: the encoder over the padded
-    prompt, the decoder over the frame bucket.  A block's three residual
-    units are one residual_stack call where the codec fuses blocks and
-    stack_tile admits the block."""
-    from flamed_tts_tpu_torch.ops.resunit import stack_tile
-
-    dtype = codec.dec_params["stem"]["w"].dtype
-
-    def block(t, c, res, prepared):
-        if codec.fuse_blocks and stack_tile(c, dtype) is not None:
-            return [("residual_stack", t, c, 0, res, prepared)]
-        return [("residual_unit", t, c, d, u, w) for u, w, d in zip(res, prepared, (1, 3, 9))]
-
+    every kernel call of the codec's encoder over ``n_samples`` samples.  A
+    block's three residual units are one residual_stack call where the codec
+    fuses blocks and stack_tile admits the block."""
     calls = []
     t = n_samples
     for blk, prepared, stride in zip(codec.enc_params["blocks"], codec.enc_prepared, codec.up_ratios_enc):
         c = blk["act"]["alpha"].numel()
-        calls += block(t, c, blk["res"], prepared)
+        calls += _block_calls(codec, t, c, blk["res"], prepared)
         calls.append(("snake_filtered", t, c, 0, blk["act"], None))
         t //= stride
     calls.append(("snake_filtered", t, codec.enc_params["final_act"]["alpha"].numel(), 0,
                   codec.enc_params["final_act"], None))
-    t = f_bucket
+    return calls
+
+
+def _block_calls(codec, t, c, res, prepared) -> list:
+    from flamed_tts_tpu_torch.ops.resunit import stack_tile
+
+    if codec.fuse_blocks and stack_tile(c, codec.dec_params["stem"]["w"].dtype) is not None:
+        return [("residual_stack", t, c, 0, res, prepared)]
+    return [("residual_unit", t, c, d, u, w) for u, w, d in zip(res, prepared, (1, 3, 9))]
+
+
+def decoder_calls(codec, frames: int) -> list:
+    """The kernel calls (as ``encoder_calls``) of ``codec.decode`` over
+    ``frames`` latent frames."""
+    calls, t = [], frames
     for blk, prepared, stride in zip(codec.dec_params["blocks"], codec.dec_prepared, codec.up_ratios_dec):
         calls.append(("snake_filtered", t, blk["act"]["alpha"].numel(), 0, blk["act"], None))
         t *= stride
-        calls += block(t, blk["up"]["w"].shape[1], blk["res"], prepared)
+        calls += _block_calls(codec, t, blk["up"]["w"].shape[1], blk["res"], prepared)
     calls.append(("snake_filtered", t, codec.dec_params["final_act"]["alpha"].numel(), 0,
                   codec.dec_params["final_act"], None))
     return calls
+
+
+def main_path_calls(codec, n_samples: int, f_bucket: int) -> list:
+    """The kernel calls of one Flamed.sample: the encoder over the padded
+    prompt, the decoder over the frame bucket."""
+    return encoder_calls(codec, n_samples) + decoder_calls(codec, f_bucket)
+
+
+def launch_counts(calls) -> dict:
+    return {k: sum(1 for c in calls if c[0] == k) for k in SOURCES}
+
+
+def training_phase(kernels, compare, codec, dev) -> dict:
+    """Phase 6, the training path (see the module docstring).  ``codec`` is
+    the fp32 codec of path A (one K2 launch a residual unit).  The
+    precompute and the trainer run under PyTorch's own TF32 switches
+    (``DEFAULT_TF32``), every comparison with TF32 off.  Returns, for the
+    kernels line, {"precompute": one 17 s utterance's analysis, "validation":
+    the trainer run's validation audio}, each {"calls", "launches"}."""
+    import tempfile
+
+    from flamed_tts_tpu_torch.config import load_yaml, save_yaml
+    from flamed_tts_tpu_torch.data.dataset import batch_iterator
+    from flamed_tts_tpu_torch.data.synthetic import fabricate_corpus
+    from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
+    from flamed_tts_tpu_torch.models.flamed import Flamed
+    from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
+    from flamed_tts_tpu_torch.ops.resunit import residual_unit_cuda, residual_unit_reference
+    from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
+    from flamed_tts_tpu_torch.precompute import analyze_utterance, precompute
+    from flamed_tts_tpu_torch.train import cli as train_cli
+    from flamed_tts_tpu_torch.train.step import batch_to_device, init_train_state, train_step
+    from flamed_tts_tpu_torch.utils.audio import load_wav
+
+    gib = 2.0 ** 30
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        # 6.1 a corpus of 32 utterances of 3-16 s; the first one 15.6 s, so
+        # that its analysis runs at the 17 s bucket (272000 samples)
+        seconds = np.random.RandomState(0).uniform(3.0, 16.0, TRAIN_UTTERANCES)
+        seconds[0] = 15.6
+        manifest = fabricate_corpus(os.path.join(tmp, "corpus"), seconds, seed=0)
+        with open(manifest, encoding="utf-8") as fin:
+            lines = [ln.strip() for ln in fin if ln.strip()]
+
+        # 6.2 precompute on the card, under PyTorch's own TF32 switches
+        npz_dir = os.path.join(tmp, "npz")
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with tf32(*DEFAULT_TF32):
+            setting = tf32_label()
+            stats = precompute(lines, npz_dir, codec)
+            torch.cuda.synchronize()
+        run_launches = dict(kernels.launches)
+        audio_s, wall = stats["audio_s"], stats["seconds"]
+        log(f"[train precompute] {stats['done']} utterances ({stats['failed']} failed), "
+            f"{audio_s:.1f} s of audio in {wall:.2f} s ({setting}): {stats['done'] / wall:.2f} "
+            f"utterances/s, {audio_s / wall:.1f} audio-s/s; launches {json.dumps(run_launches)}; "
+            f"peak memory {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+        expected = {"snake_filtered": 5 * TRAIN_UTTERANCES, "residual_unit": 12 * TRAIN_UTTERANCES,
+                    "residual_stack": 0}
+        if stats["done"] != TRAIN_UTTERANCES or stats["failed"] or run_launches != expected:
+            raise AssertionError(f"precompute: {stats}, launches {run_launches}, expected {expected}")
+        # one >= 12 s utterance analysed again on the card, TF32 off and its
+        # launches counted, against the CPU's plain path
+        wav = load_wav(lines[0].split("|")[0])
+        padded = len(codec.pad_prompt_wav(wav)[0])
+        kernels.reset_launches()
+        card = analyze_utterance(codec, wav)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        ref = analyze_utterance(FaCodec.from_pretrained(CODEC_DIR, device="cpu"), wav)
+        n_diff = int((card["code"] != ref["code"]).sum())
+        errs = {k: float(np.abs(card[k] - ref[k]).max()) for k in ("emb", "spk")}
+        ok = n_diff == 0 and all(np.all(np.abs(card[k] - ref[k]) <= TOL + TOL * np.abs(ref[k]))
+                                 for k in ("emb", "spk"))
+        log(f"[train precompute] utterance 0 ({len(wav)} samples, padded to {padded}) on the card "
+            f"({tf32_label()}; launches {json.dumps(launches)}) vs CPU: {n_diff} of "
+            f"{ref['code'].size} RVQ codes differ; emb max abs diff {errs['emb']:.3e}, spk "
+            f"{errs['spk']:.3e} (tol {TOL} abs + {TOL} rel: fp32, other summation orders) "
+            f"{'ok' if ok else 'FAIL'}")
+        with np.load(os.path.join(npz_dir, "utt00000.npz")) as got:
+            got = {k: got[k] for k in ("code", "emb", "spk")}
+        log(f"[train precompute] utterance 0 as the precompute wrote it ({setting}) vs CPU: "
+            f"{int((got['code'] != ref['code']).sum())} of {ref['code'].size} RVQ codes differ; emb "
+            f"max abs diff {float(np.abs(got['emb'] - ref['emb']).max()):.3e}, spk "
+            f"{float(np.abs(got['spk'] - ref['spk']).max()):.3e} (not held: TF32 convolutions)")
+        calls = encoder_calls(codec, padded)
+        if not ok or padded != 17 * 16000 or launches != launch_counts(calls):
+            raise AssertionError(f"the card's analysis of utterance 0 disagrees with the CPU's, or "
+                                 f"its launches {launches} are not those of {padded} samples")
+        # K1 and K2 at the first two encoder blocks' lengths of the 17 s bucket
+        # (and one row short of the first), with the trained codec's weights
+        gen = torch.Generator(device=dev).manual_seed(3)
+        for blk, t in zip(codec.enc_params["blocks"][:2], (272000, 136000)):
+            c = blk["act"]["alpha"].numel()
+            for t_len in ((t, t - 1) if c == 32 else (t,)):
+                x = torch.randn((1, t_len, c), generator=gen, device=dev)
+                compare("snake_filtered", snake_filtered_cuda(x, blk["act"]["alpha"], blk["act"]["beta"]),
+                        snake_filtered_reference(x, blk["act"]["alpha"], blk["act"]["beta"]),
+                        f"precompute (1, {t_len}, {c})", path="precompute")
+                for u, d in zip(blk["res"], (1, 3, 9)):
+                    compare("residual_unit", residual_unit_cuda(x, u, d),
+                            residual_unit_reference(x, u, d), f"precompute (1, {t_len}, {c}) d={d}",
+                            path="precompute")
+
+        # 6.3 the trainer CLI at full width, under PyTorch's own TF32
+        # switches: configs/*.yaml with the data config pointed at the
+        # precomputed set
+        cfg_dir, exp = os.path.join(tmp, "configs"), os.path.join(tmp, "exp")
+        for name in ("prior", "prob", "codec", "optimizer", "data"):
+            part = load_yaml(os.path.join(ROOT, "configs", f"{name}.yaml"))
+            if name == "data":
+                part.update(data_root=npz_dir, use_precomputed=True)
+            save_yaml(part, os.path.join(cfg_dir, f"{name}.yaml"))
+        args = ["--config-dir", cfg_dir, "--exp-dir", exp, "--val-every", "15",
+                "--codec-dir", CODEC_DIR, "--audio-log-after", "0", "--device", dev.type]
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with tf32(*DEFAULT_TF32):
+            setting = tf32_label()
+            state = train_cli.main(args + ["--max-steps", str(TRAIN_STEPS), "--log-every", "5"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train_launches = dict(kernels.launches)
+        with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fin:
+            records = [json.loads(x) for x in fin]
+        steps = [r for r in records if "total_loss" in r]
+        timed = [r for r in steps if "steps_per_sec" in r]
+        vals = [r["total_loss_val"] for r in records if "total_loss_val" in r]
+        loss_keys = ("dur_loss", "sil_loss", "prior_loss", "fm_loss", "anchor_loss", "total_loss",
+                     "grad_norm")
+        finite = all(np.isfinite(r[k]) for r in steps for k in loss_keys) and all(np.isfinite(vals))
+        files = [os.path.join(exp, f) for f in ("metrics.jsonl", "config.yaml", "checkpoints/last.npz",
+                                                "checkpoints/train_state.pt")]
+        wavs = [os.path.join(exp, "val_audio", f"step{s}_{k}.wav") for s in (15, 30)
+                for k in ("synth", "gt")]
+        rate = {k: float(np.median([r[k] for r in timed])) for k in
+                ("steps_per_sec", "samples_per_sec", "frames_per_sec")}
+        # the validation audio's decodes: the synthesis at its frame bucket,
+        # the ground truth at its length (metrics.jsonl holds floats)
+        audio = [r for r in records if "val_audio_frame_bucket" in r]
+        val_calls = [c for r in audio for k in ("val_audio_frame_bucket", "val_audio_gt_frames")
+                     for c in decoder_calls(codec, int(r[k]))]
+        log(f"[train cli] {setting}; {state.step} steps at batch 16 in {wall:.1f} s (first step "
+            f"{next(r['first_step_s'] for r in records if 'first_step_s' in r):.1f} s); warm "
+            f"intervals of 5 steps: median step {1e3 / rate['steps_per_sec']:.1f} ms, "
+            f"{rate['samples_per_sec']:.2f} samples/s, {rate['frames_per_sec']:.0f} valid frames/s "
+            f"(each {', '.join(f'{1e3 / r['steps_per_sec']:.1f}' for r in timed)} ms a step); "
+            f"peak memory {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+        log(f"[train cli] total_loss at steps {[r['step'] for r in steps]}: "
+            f"{[round(r['total_loss'], 4) for r in steps]}; grad_norm "
+            f"{[round(r['grad_norm'], 3) for r in steps]}; total_loss_val {vals}; "
+            f"launches {json.dumps(train_launches)} (validation audio at steps "
+            f"{[r['step'] for r in audio]}: synthesis decoded at "
+            f"{[int(r['val_audio_frame_bucket']) for r in audio]} frames, ground truth at "
+            f"{[int(r['val_audio_gt_frames']) for r in audio]})")
+        missing = [f for f in files + wavs if not os.path.isfile(f)]
+        if (state.step != TRAIN_STEPS or not finite or len(vals) != 2 or missing or len(audio) != 2
+                or train_launches != launch_counts(val_calls) or not train_launches["snake_filtered"]
+                or not train_launches["residual_unit"]):
+            raise AssertionError(f"trainer: step {state.step}, finite {finite}, validations {vals}, "
+                                 f"missing {missing}, validation audio {audio}, launches "
+                                 f"{train_launches}, expected {launch_counts(val_calls)}")
+        del state
+        torch.cuda.empty_cache()
+
+        # 6.4 the loss falls on one fixed batch at lr 1e-3, no warmup (the
+        # trainer's TF32 switches)
+        cfg = train_cli.load_training_config(
+            cfg_dir, overrides={"optimizer_cfg": {"lr": 1e-3, "warmup_steps": 0}})
+        trainset, _ = train_cli.make_datasets(cfg["dataset_cfg"])
+        collator = train_cli.make_collator(cfg["dataset_cfg"], 0)
+        batch = next(batch_iterator(trainset, collator, 16, shuffle=True, seed=0))
+        model = Flamed(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        state = init_train_state(model.prior, model.prob, cfg["optimizer_cfg"], seed=0)
+        on_card = batch_to_device(batch, dev)
+        with tf32(*DEFAULT_TF32):
+            losses = [float(train_step(state, on_card)["total_loss"]) for _ in range(20)]
+            log(f"[train fixed batch] {tf32_label()}; total_loss over 20 steps at lr 1e-3 (frames "
+                f"{batch['codes'].shape[-1]}, phonemes {batch['phonemes'].shape[-1]}): "
+                f"{[round(v, 4) for v in losses]}")
+            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+                raise AssertionError("the loss did not fall over 20 steps on one batch")
+            train_step_breakdown(state, on_card, batch)
+        del model, state, on_card
+        torch.cuda.empty_cache()
+
+        # 6.5 one deterministic step (dropout rates 0) on the card, TF32 off,
+        # and on the CPU, from the same parameters and the same draws.  eps 1e-4 in
+        # place of 1e-9: a parameter whose gradient is zero in exact
+        # arithmetic (the attention's key biases, the depthwise conv biases
+        # before a per-channel norm) holds rounding noise that differs
+        # between the devices, and Adam's first step scales it to +-lr at
+        # eps 1e-9
+        cfg = train_cli.load_training_config(cfg_dir, overrides={
+            "optimizer_cfg": {"warmup_steps": 0, "eps": 1e-4},
+            "prior_generator": {"transformer": {"encoder_dropout": 0.0, "decoder_dropout": 0.0},
+                                "variance_adaptor": {g: {"drop_out": 0.0} for g in
+                                                     ("duration_generator", "sil_generator")}}})
+        order = np.argsort([trainset[i]["code"].shape[-1] for i in range(len(trainset))])
+        batch = collator([trainset[int(i)] for i in order[:2]])
+        b, l = batch["phonemes"].shape
+        lf = batch["codes"].shape[-1]
+        nrng = np.random.RandomState(7)
+        draws = {"pva_t": nrng.rand(b, 1), "dur_noise": nrng.randn(b, l),
+                 "sil_noise": nrng.randn(b, l), "prob_t": nrng.rand(b, lf, 1),
+                 "prob_noise": nrng.randn(b, lf, 256)}
+        cpu_model = Flamed(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+        params = {"prior": cpu_model.prior.state_dict(), "prob": cpu_model.prob.state_dict()}
+        start = {k: {n: v.clone() for n, v in sd.items()} for k, sd in params.items()}
+        card_model = Flamed(cfg, params=params, device=dev)
+        out = {}
+        for where, model in (("card", card_model), ("cpu", cpu_model)):
+            device = model.device
+            state = init_train_state(model.prior, model.prob, cfg["optimizer_cfg"], seed=0)
+            metrics = train_step(state, batch_to_device(batch, device),
+                                 draws={k: torch.as_tensor(v, dtype=torch.float32, device=device)
+                                        for k, v in draws.items()})
+            out[where] = ({k: float(v) for k, v in metrics.items()},
+                          {k: {n: v.float().cpu() for n, v in sd.items()} for k, sd in
+                           (("prior", model.prior.state_dict()), ("prob", model.prob.state_dict()))})
+        (mg, pg), (mc, pc) = out["card"], out["cpu"]
+        loss_rel = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc if k != "grad_norm")
+        norm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+        worst, moved = 0.0, 0.0
+        for part in pc:
+            for n, vc in pc[part].items():
+                excess = (pg[part][n] - vc).abs() - (1e-5 + 1e-4 * vc.abs())
+                worst = max(worst, float(excess.max()))
+                moved = max(moved, float((vc - start[part][n]).abs().max()))
+        log(f"[train card vs CPU] one step, batch of 2 (phonemes {l}, frames {lf}): losses max rel "
+            f"diff {loss_rel:.3e} (tol 1e-4), grad_norm {mg['grad_norm']:.4f} vs {mc['grad_norm']:.4f}, "
+            f"rel {norm_rel:.3e} (tol 1e-3); parameters after AdamW: worst excess over 1e-5 abs + "
+            f"1e-4 rel {worst:.3e} (<= 0 passes), largest move {moved:.3e}")
+        if not (loss_rel <= 1e-4 and norm_rel <= 1e-3 and worst <= 0.0 and moved > 1e-5):
+            raise AssertionError("a training step on the card disagrees with the same on the CPU")
+        del card_model, cpu_model, state
+        torch.cuda.empty_cache()
+
+        # 6.6 resume for two more steps, then serve from last.npz
+        with tf32(*DEFAULT_TF32):
+            state = train_cli.main(args + ["--max-steps", str(TRAIN_STEPS + 2), "--log-every", "1",
+                                           "--resume-full"])
+        with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fin:
+            resumed = [json.loads(x) for x in fin][len(records):]
+        losses = [r["total_loss"] for r in resumed if "total_loss" in r]
+        log(f"[train resume] from step {TRAIN_STEPS} to {state.step}: total_loss {losses}")
+        if state.step != TRAIN_STEPS + 2 or len(losses) != 2 or not np.isfinite(losses).all():
+            raise AssertionError("resume did not continue the step count with finite losses")
+        del state
+        cfg = train_cli.load_training_config(cfg_dir)
+        model = Flamed.from_pretrained(cfg, os.path.join(exp, "checkpoints", "last.npz"), device=dev)
+        res = model.sample(text=TEXT, prompt_raw=prompt_wav(3.0, seed=4), codec=codec, seed=0,
+                           nsteps_durgen=32, nsteps_denoiser=32)
+        n = int(res["tgt_len"][0])
+        log(f"[train serve] last.npz through Flamed.from_pretrained: tgt_len {n}, wav "
+            f"{res['wav'].shape[0]} samples, finite {bool(np.isfinite(res['wav']).all())}")
+        if res["wav"].shape != (n * codec.hop,) or n <= 0 or not np.isfinite(res["wav"]).all():
+            raise AssertionError("the trained checkpoint did not serve a finite wav")
+    return {"precompute": {"calls": calls, "launches": launches},
+            "validation": {"calls": val_calls, "launches": train_launches}}
+
+
+def train_step_breakdown(state, on_card, batch) -> None:
+    """Where a warm training step's time goes: forward, backward and the
+    AdamW update timed apart on the host clock (each ends in a
+    synchronize); the matmul and conv FLOPs of a step
+    (torch.utils.flop_counter) over its wall; the device's busy share and
+    top kernels from torch.profiler over one step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from flamed_tts_tpu_torch.train.losses import compute_losses
+    from flamed_tts_tpu_torch.train.step import train_step
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    state.optimizer.zero_grad(set_to_none=True)
+    losses, fwd_ms = timed(lambda: compute_losses(state.prior, state.prob, on_card, state.generator))
+    _, bwd_ms = timed(lambda: losses["total_loss"].backward())
+    _, opt_ms = timed(state.optimizer.step)
+    with FlopCounterMode(display=False) as counter:
+        train_step(state, on_card)
+    flops = counter.get_total_flops()
+    _, wall = timed(lambda: train_step(state, on_card))
+    log(f"[train breakdown] batch {batch['phonemes'].shape[0]}, frames {batch['codes'].shape[-1]}, phonemes "
+        f"{batch['phonemes'].shape[-1]}, prompt {batch['prompts'].shape[-1]}: forward {fwd_ms:.1f} ms, "
+        f"backward {bwd_ms:.1f} ms, AdamW {opt_ms:.1f} ms; a step {wall:.1f} ms ({tf32_label()}), "
+        f"{flops / 1e12:.2f} TFLOP of matmuls and convs, {flops / wall / 1e9:.1f} TFLOP/s "
+        f"({100 * flops / wall / 1e9 / (PEAK_FP32_FLOP_PER_S / 1e12):.1f} % of the fp32 peak outside "
+        f"the tensor cores)")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        _, wall = timed(lambda: train_step(state, on_card))
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[train breakdown] profiled step {wall:.1f} ms: device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f} %), {sum(e.count for e in events)} device kernels/copies")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[train breakdown]   {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
 def breakdown(label: str, model, codec, wav_in, sample_kwargs: dict) -> None:
@@ -375,7 +727,9 @@ def main() -> int:
     # 2. kernels against their plain versions
     max_err = {}
 
-    def compare(name, out, ref, label):
+    def compare(name, out, ref, label, path=None):
+        """The kernel's output against its plain version's; the largest
+        error is kept per (kernel, io type, path) for the kernels line."""
         dtype = out.dtype
         out, ref = out.float(), ref.float()
         diff = (out - ref).abs()
@@ -388,7 +742,7 @@ def main() -> int:
         else:
             ok = bool(torch.all(diff <= TOL + TOL * ref.abs()))
             how = f"max_rel_err {err / max(float(ref.abs().max()), 1e-30):.3e} (tol {TOL} abs + {TOL} rel)"
-        key = (name, DTYPE_NAMES[dtype])
+        key = (name, DTYPE_NAMES[dtype], path)
         max_err[key] = max(max_err.get(key, 0.0), err)
         log(f"[check] {name} {DTYPE_NAMES[dtype]} {label}: max_abs_err {err:.3e}, {how} "
             f"{'ok' if ok else 'FAIL'}")
@@ -583,9 +937,11 @@ def main() -> int:
     # 5. each main-path shape: the kernel against its plain version, then
     # both timed
     per = {}
-    for path, run, cd in (("A", run_a, codec), ("B", run_b, codec_b)):
-        dtype = cd.dec_params["stem"]["w"].dtype
-        for name, t, ch, d, p, w in run["calls"]:
+
+    def time_path(path, calls, dtype):
+        """Each call's shape once: the kernel against its plain version, then
+        both timed; repeated shapes count their calls."""
+        for name, t, ch, d, p, w in calls:
             rows = per.setdefault((name, DTYPE_NAMES[dtype], path), {})
             if (t, ch, d) in rows:
                 rows[(t, ch, d)]["calls"] += 1
@@ -600,7 +956,7 @@ def main() -> int:
             else:
                 run_k = lambda: residual_stack_cuda(x, p, prepared=w)
                 plain = lambda: residual_stack_reference(x, p)
-            compare(name, run_k(), plain(), f"path {path} shape (1, {t}, {ch}) d={d}")
+            compare(name, run_k(), plain(), f"path {path} shape (1, {t}, {ch}) d={d}", path=path)
             work = t * ch * (1 + ch // 64) * (3 if name == "residual_stack" else 1)
             reps = max(3, min(50, int(2e8 // work)))
             k_ms, k_wall, p_ms = graph_ms(run_k, reps), time_ms(run_k, reps), time_ms(plain, reps)
@@ -621,6 +977,9 @@ def main() -> int:
             log(f"[time] path {path} {name} {DTYPE_NAMES[dtype]} (1, {t}, {ch}) d={d}: kernel "
                 f"{k_ms:.4f} ms (graph) / {k_wall:.4f} ms (per call), plain {p_ms:.4f} ms (per call), "
                 f"bound {b_ms:.5f} ms ({b_by}){extra}")
+
+    for path, run, cd in (("A", run_a, codec), ("B", run_b, codec_b)):
+        time_path(path, run["calls"], cd.dec_params["stem"]["w"].dtype)
     # K3 in fp32 is on neither main path (path A launches K2 per unit): its
     # time at the two encoder shapes stack_tile admits in fp32, beside three K2
     # launches, on log lines only
@@ -636,23 +995,36 @@ def main() -> int:
         log(f"[time] off-path residual_stack fp32 (1, {t}, {ch}) tile={stack_tile(ch, torch.float32)}: "
             f"kernel {k3:.4f} ms (graph), three residual_unit launches {k2:.4f} ms (graph), plain "
             f"{p_ms:.4f} ms (per call), bound {b_ms:.5f} ms ({b_by})")
+
+    # 6. the training path: precompute on the card, training at full width,
+    # resume and serve; then its kernels at the shapes of one 17 s
+    # utterance's analysis and of the trainer run's validation audio
+    runs = {"A": run_a, "B": run_b, **training_phase(kernels, compare, codec, dev)}
+    for path in ("precompute", "validation"):
+        time_path(path, runs[path]["calls"], torch.float32)
+
+    notes = {"A": "one utterance's launches on path A", "B": "one utterance's launches on path B",
+             "precompute": "one 17 s utterance's analysis in the precompute step (the encoder at "
+                           "272000 samples)",
+             "validation": "the trainer run's two validation-audio logs (steps 15 and 30: each "
+                           "decodes one synthesized utterance at its frame bucket and its ground "
+                           "truth at its length)"}
     entries = []
     for (name, dtype_name, path), shapes in per.items():
         rows = list(shapes.values())
         tot = {k: sum(r[k] * r["calls"] for r in rows)
                for k in ("ms", "wall_ms", "plain_ms", "bound_ms")}
         by_ops = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "operations")
-        run = run_a if path == "A" else run_b
         entries.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "dtype": dtype_name, "path": path,
-            "launches": run["launches"][name], "max_abs_err": max_err[(name, dtype_name)],
+            "launches": runs[path]["launches"][name], "max_abs_err": max_err[(name, dtype_name, path)],
             "ms": round(tot["ms"], 4), "plain_ms": round(tot["plain_ms"], 4),
             "bound_ms": round(tot["bound_ms"], 5),
             "wall_ms": round(tot["wall_ms"], 4),
             "bound_by": "operations" if by_ops * 2 >= tot["bound_ms"] else "bytes",
             "library_ms": None,
-            "note": "sums over one utterance's launches on the named path at the shapes below; "
+            "note": f"sums over {notes[path]} at the shapes below; "
                     "ms is the wrapper's device time (CUDA graph replay), wall_ms and plain_ms "
                     "per-call CUDA-event time including the host's launch cost; library_ms is "
                     "null because no single PyTorch call computes the function (the nearest, "

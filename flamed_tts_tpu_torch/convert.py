@@ -1,4 +1,4 @@
-"""Parameter trees of the JAX package -> the port's parameters.
+"""Parameter trees of the JAX package <-> the port's parameters.
 
 * Flax trees (prior, prob: ``{"params": {...}}``) become a PyTorch
   ``state_dict``: path components join with '.', Dense kernels (in, out)
@@ -8,6 +8,11 @@
 * Codec trees (encoder, decoder) already hold PyTorch layouts
   (conv (out, in, k), conv-transpose (in, out, k)); they keep their
   nesting with every leaf a float tensor.
+
+``params_to_jax`` is the inverse for the prior and prob generators: a
+``state_dict`` (or any dict of tensors under the same names, such as their
+gradients) becomes a ``{"params": ...}`` flax tree of float32 numpy arrays,
+which is what the JAX package's training checkpoints hold.
 
 A leaf is a numpy array or a tensor.  A bfloat16 leaf (a bfloat16 tensor,
 or a numpy array of the ``bfloat16`` extension type that JAX arrays convert
@@ -22,6 +27,8 @@ import numpy as np
 import torch
 
 _RENAME = {"kernel": "weight", "embedding": "weight", "scale": "weight"}
+# the modules of the prior and prob generators that are flax ``nn.Embed``s
+EMBEDDINGS = ("src_word_emb", "code_embedding", "quantizer_emb")
 
 
 def _flax_state_dict(tree: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
@@ -65,3 +72,27 @@ def params_from_jax(tree: Any) -> Any:
     if isinstance(tree, dict) and set(tree) == {"params"}:
         return _flax_state_dict(tree["params"])
     return codec_tree(tree)
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """A prior or prob ``state_dict`` -> ``{"params": nested flax tree}``:
+    Linear weights (out, in) become Dense kernels (in, out), Conv1d weights
+    (Cout, Cin, K) become Conv kernels (K, Cin, Cout), the weights of the
+    ``EMBEDDINGS`` become ``embedding`` and 1-D (norm) weights ``scale``."""
+    tree: Dict = {}
+    for name, value in state_dict.items():
+        *path, leaf = name.split(".")
+        v = value.detach().float().cpu()
+        if leaf == "weight":
+            if v.dim() == 1:
+                leaf = "scale"
+            elif path[-1] in EMBEDDINGS:
+                leaf = "embedding"
+            else:
+                leaf = "kernel"
+                v = v.t() if v.dim() == 2 else v.permute(2, 1, 0)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(v.numpy())
+    return {"params": tree}

@@ -26,11 +26,13 @@ N_SYMBOLS = len(symbols)
 
 
 class FFTStack(nn.Module):
-    def __init__(self, n_layers: int, d_model: int, n_head: int, d_inner: int, kernel_sizes):
+    def __init__(self, n_layers: int, d_model: int, n_head: int, d_inner: int, kernel_sizes,
+                 dropout: float = 0.0):
         super().__init__()
         d_k = d_model // n_head
         for i in range(n_layers):
-            self.add_module(f"layer_{i}", FFTBlock(d_model, n_head, d_k, d_k, d_inner, kernel_sizes))
+            self.add_module(f"layer_{i}", FFTBlock(d_model, n_head, d_k, d_k, d_inner, kernel_sizes,
+                                                   dropout))
 
     def forward(self, x: Tensor, pad_mask: Tensor) -> Tensor:
         for layer in self.children():
@@ -51,18 +53,21 @@ class PriorGenerator(nn.Module):
 
         self.src_word_emb = nn.Embedding(N_SYMBOLS + 1, self.enc_hidden)
         self.encoder = FFTStack(tcfg["encoder_layer"], self.enc_hidden, tcfg["encoder_head"],
-                                tcfg["encoder_conv_filter_size"], tcfg["encoder_conv_kernel_size"])
+                                tcfg["encoder_conv_filter_size"], tcfg["encoder_conv_kernel_size"],
+                                tcfg["encoder_dropout"])
         for name in ("duration_generator", "sil_generator"):
             g = vcfg[name]
             self.add_module(name, ProbabilisticModule(g["input_size"], g["filter_size"],
-                                                      g["kernel_size"], g["time_scale"]))
+                                                      g["kernel_size"], g["time_scale"],
+                                                      g["drop_out"]))
         self.bridge = nn.Linear(self.enc_hidden, self.dec_hidden)
         # the last id is padding (zero row in converted checkpoints)
         self.code_embedding = nn.Embedding(self.vocab_size + 1, self.dec_hidden)
 
         def decoder(n_layers):
             return FFTStack(n_layers, self.dec_hidden, tcfg["decoder_head"],
-                            tcfg["decoder_conv_filter_size"], tcfg["decoder_conv_kernel_size"])
+                            tcfg["decoder_conv_filter_size"], tcfg["decoder_conv_kernel_size"],
+                            tcfg["decoder_dropout"])
 
         self.shared_decoder = decoder(tcfg["decoder_shared_layers"])
         self.n_prior_decoders = len(tcfg["decoder_layers"])

@@ -2,7 +2,8 @@
 log(duration + 1), one for phone durations and one for trailing silences.
 
 Kept from the reference: the second conv has a literal ``padding=1``,
-which is SAME padding only because the kernel size is 3.
+which is SAME padding only because the kernel size is 3.  In train mode a
+dropout follows each LayerNorm.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from flamed_tts_tpu_torch.ops.dropout import Dropout
 from flamed_tts_tpu_torch.ops.embeddings import flow_time_embedding
 
 
@@ -32,7 +34,8 @@ class FlowTimeEmbedding(nn.Module):
 class ProbabilisticModule(nn.Module):
     """Vector field v(x_t, encoder output, t)."""
 
-    def __init__(self, input_size: int, filter_size: int, kernel_size: int = 3, time_scale: int = 4):
+    def __init__(self, input_size: int, filter_size: int, kernel_size: int = 3, time_scale: int = 4,
+                 dropout: float = 0.0):
         super().__init__()
         k = kernel_size
         self.proj = nn.Linear(input_size + 1, input_size)
@@ -41,6 +44,7 @@ class ProbabilisticModule(nn.Module):
         self.layer_norm_1 = nn.LayerNorm(filter_size, eps=1e-5)
         self.conv1d_2 = nn.Conv1d(filter_size, filter_size, k, padding=1)
         self.layer_norm_2 = nn.LayerNorm(filter_size, eps=1e-5)
+        self.dropout = Dropout(dropout)
         self.linear_layer = nn.Linear(filter_size, 1)
 
     def forward(self, xt: Tensor, enc_out: Tensor, t: Tensor, pad_mask: Optional[Tensor]) -> Tensor:
@@ -54,8 +58,8 @@ class ProbabilisticModule(nn.Module):
                 h = h.masked_fill(pad_mask[..., None], 0.0)
             return layer(h.transpose(1, 2)).transpose(1, 2)
 
-        out = self.layer_norm_1(F.relu(conv(self.conv1d_1, out)))
-        out = self.layer_norm_2(F.relu(conv(self.conv1d_2, out)))
+        out = self.dropout(self.layer_norm_1(F.relu(conv(self.conv1d_1, out))))
+        out = self.dropout(self.layer_norm_2(F.relu(conv(self.conv1d_2, out))))
         out = self.linear_layer(out)[..., 0]
         if pad_mask is not None:
             out = out.masked_fill(pad_mask, 0.0)

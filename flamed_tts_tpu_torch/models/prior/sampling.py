@@ -1,13 +1,15 @@
-"""Prior sampling: the PVA Euler loop and integer durations.
+"""Prior sampling (the PVA Euler loop and integer durations) and the
+PVA's training loss.
 
 The noise is an argument: ``pva_sample`` takes the standard-normal draws
-for the duration and silence flows, so a caller (or a test holding the
-JAX draws) decides them.
+for the duration and silence flows, and ``pva_loss`` takes its time and
+noises or draws them from a passed generator, so a caller (or a test
+holding the JAX draws) decides them.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
@@ -32,3 +34,34 @@ def pva_sample(prior, enc_out: Tensor, src_mask: Tensor, dur_noise: Tensor,
         dur = dur + delta_t * v_dur
         sil = sil + delta_t * v_sil
     return durations_from_flow(dur), durations_from_flow(sil)
+
+
+def pva_loss(prior, enc_out: Tensor, src_mask: Tensor, phone_dur: Tensor, sil_dur: Tensor,
+             sigma_min: float, generator: Optional[torch.Generator] = None,
+             t: Optional[Tensor] = None, noise: Optional[Tuple[Tensor, Tensor]] = None,
+             loss_norm: str = "masked") -> Dict[str, Tensor]:
+    """OT-CFM losses of the duration and silence flows over log(dur + 1).
+    ``t`` (B, 1) uniform and ``noise`` (duration, silence), each (B, L)
+    standard normal, are drawn from ``generator`` (t first) where not given.
+
+    ``loss_norm="masked"`` takes the MSE over valid positions;
+    ``"reference"`` over the whole padded (B, L) buffer."""
+    b, l = phone_dur.shape
+    dev = enc_out.device
+    if t is None:
+        t = torch.rand((b, 1), generator=generator, device=dev)
+    if noise is None:
+        noise = tuple(torch.randn((b, l), generator=generator, device=dev) for _ in range(2))
+    valid = (~src_mask).float()
+    denom = float(b * l) if loss_norm == "reference" else torch.clamp(valid.sum(), min=1.0)
+
+    def interpolate(target, x0):
+        x1 = torch.log(target.float() + 1.0)
+        xt = t * x1 + (1.0 - (1.0 - sigma_min) * t) * x0
+        return xt, (x1 - (1.0 - sigma_min) * x0) * valid
+
+    dur_xt, dur_u = interpolate(phone_dur, noise[0])
+    sil_xt, sil_u = interpolate(sil_dur, noise[1])
+    v_dur, v_sil = prior.pva_fields(dur_xt, sil_xt, enc_out, t[:, 0], src_mask)
+    return {"dur_loss": (((v_dur - dur_u) ** 2) * valid).sum() / denom,
+            "sil_loss": (((v_sil - sil_u) ** 2) * valid).sum() / denom}

@@ -6,6 +6,10 @@ source) and takes ``nfe`` Euler steps at scalar times; every step's adaLN
 modulations are computed once before the loop (``compute_mods``).  The
 mask enters every time-mixing op, so a padded run equals an exact-length
 one on the valid frames.
+
+Training (``prob_loss``) draws a time per frame, so there the modulations
+are per position, (B, L, 6C) a block (``SimpleMLPAdaLN.mods_at``); serving
+never builds them.
 """
 
 from __future__ import annotations
@@ -80,6 +84,15 @@ class SimpleMLPAdaLN(nn.Module):
         y = t_emb[:, None, :, :] + self.cond_embed(spk)[None, :, None, :]
         return [blk.mods(y) for blk in self.blocks()] + [self.final_layer.mods(y)]
 
+    def mods_at(self, t: Tensor, spk: Tensor) -> List[Tensor]:
+        """Modulations at times ``t`` broadcastable to (B, L) (a scalar, (B,)
+        or (B, L)): per block (B, L or 1, 6C), final layer (B, L or 1, 5C)."""
+        t = t.float()
+        while t.dim() < 2:
+            t = t[None] if t.dim() == 0 else t[:, None]
+        y = self.time_embed(t) + self.cond_embed(spk)[:, None, :]
+        return [blk.mods(y) for blk in self.blocks()] + [self.final_layer.mods(y)]
+
     def forward(self, x: Tensor, mods: List[Tensor], pad_mask: Optional[Tensor] = None) -> Tensor:
         """One denoiser call with one step's modulations (each (B, 1, kC))."""
         x = self.proj_in(x)
@@ -108,6 +121,10 @@ class ProbGenerator(nn.Module):
         b, q, l, d = x.shape
         return self.cond_downsampling(x.permute(0, 2, 1, 3).reshape(b, l, q * d), pad_mask)
 
+    def denoise(self, xt: Tensor, t: Tensor, spk: Tensor, pad_mask: Optional[Tensor] = None) -> Tensor:
+        """One denoiser call at times ``t`` broadcastable to (B, L)."""
+        return self.denoiser(xt, self.denoiser.mods_at(t, spk), pad_mask)
+
 
 @torch.no_grad()
 def prob_sample(prob: ProbGenerator, prior_hiddens: Tensor, spk: Tensor, pad_mask: Tensor,
@@ -122,3 +139,38 @@ def prob_sample(prob: ProbGenerator, prior_hiddens: Tensor, spk: Tensor, pad_mas
     for i in range(nfe):
         xt = xt + delta_t * prob.denoiser(xt, [m[i] for m in mods], pad_mask)
     return xt
+
+
+def prob_loss(prob: ProbGenerator, x1: Tensor, prior_hiddens: Tensor, spk: Tensor,
+              pad_mask: Tensor, sigma_min: float, generator: Optional[torch.Generator] = None,
+              t: Optional[Tensor] = None, noise: Optional[Tensor] = None,
+              loss_norm: str = "masked") -> Dict[str, Tensor]:
+    """fm_loss + anchor_loss of the flow from ``noise + cond`` to the latents
+    ``x1`` (B, L, target_dim), at a time per frame.  ``t`` (B, L, 1) uniform
+    and ``noise`` (B, L, target_dim) standard normal are drawn from
+    ``generator`` (t first) where not given.
+
+    ``loss_norm="masked"`` takes means over the valid positions;
+    ``"reference"`` over the whole padded (B, L, C) buffer, and the anchor
+    then compares against the raw ``x1`` buffer (zero-padded by the
+    collator)."""
+    cond = prob.encode_condition(prior_hiddens, pad_mask)
+    b, l, c = cond.shape
+    if t is None:
+        t = torch.rand((b, l, 1), generator=generator, device=cond.device)
+    if noise is None:
+        noise = torch.randn(cond.shape, generator=generator, device=cond.device)
+    x0 = noise + cond
+    xt = t * x1 + (1.0 - (1.0 - sigma_min) * t) * x0
+    valid = (~pad_mask)[:, :, None].float()
+    if loss_norm == "reference":
+        denom = float(b * l * c)
+    else:
+        denom = torch.clamp(valid.sum() * c, min=1.0)
+    dx = (x1 - (1.0 - sigma_min) * x0) * valid
+    vt = prob.denoise(xt, t[..., 0], spk, pad_mask) * valid
+    fm_loss = ((vt - dx) ** 2).sum() / denom
+    x1_est = (xt + (1.0 - (1.0 - sigma_min) * t) * vt) * valid
+    x1_ref = x1 if loss_norm == "reference" else x1 * valid
+    anchor_loss = ((x1_est - x1_ref) ** 2).sum() / denom
+    return {"fm_loss": fm_loss, "anchor_loss": anchor_loss}

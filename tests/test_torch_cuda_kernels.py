@@ -40,9 +40,11 @@ def _rand(rng, *shape, scale=1.0):
 
 
 # from (20, 8) on: the shapes the TPU kernel is held to in tests/test_pallas_kernels.py
+# last: the first two encoder blocks' lengths of the precompute step's 17 s
+# bucket, and one row short of the first
 @pytest.mark.parametrize("t_len,c", [(1, 64), (2, 64), (5, 64), (20, 64), (300, 16),
                                      (2000, 512), (4097, 96), (20, 8), (511, 32), (257, 64),
-                                     (130, 128)])
+                                     (130, 128), (272000, 32), (271999, 32), (136000, 64)])
 def test_snake_filtered_kernel(device, t_len, c):
     from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
     from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
@@ -98,6 +100,21 @@ def test_residual_unit_kernel_fp32_sums_of_one_sign(device):
     x = _rand(rng, 1, 200, 512).abs().to(device)
     ref = residual_unit_reference(x, p, 3)
     torch.testing.assert_close(residual_unit_cuda(x, p, 3), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("d", [1, 3, 9])
+@pytest.mark.parametrize("t_len,c", [(272000, 32), (271999, 32), (136000, 64)])
+def test_residual_unit_kernel_at_precompute_lengths(device, t_len, c, d):
+    """The encoder's first two blocks over a 17 s utterance (the precompute
+    step's top bucket), two batch rows: grids of ~2700 blocks, and a length
+    that leaves the last tile one row short."""
+    from flamed_tts_tpu_torch.ops.resunit import residual_unit_cuda, residual_unit_reference
+
+    rng = np.random.RandomState(t_len % 1000 + c + d)
+    p = _unit_params(rng, c, device)
+    x = _rand(rng, 2, t_len, c).to(device)
+    torch.testing.assert_close(residual_unit_cuda(x, p, d), residual_unit_reference(x, p, d),
+                               atol=ATOL, rtol=RTOL)
 
 
 def _unit_params(rng, c, device, dtype=torch.float32):

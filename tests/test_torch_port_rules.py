@@ -33,7 +33,7 @@ def test_imports_with_jax_blocked():
                          timeout=300)
     assert res.returncode == 0, res.stderr
     n_modules = len(list(pkgutil.walk_packages([PKG_DIR], "flamed_tts_tpu_torch.")))
-    assert int(res.stdout.split()[-1]) == n_modules >= 44
+    assert int(res.stdout.split()[-1]) == n_modules >= 56
 
 
 def test_no_reference_to_jax_package():
