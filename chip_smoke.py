@@ -47,9 +47,24 @@ Phases (any failure exits non-zero before the last line):
      utterance's analysis and of the validation audio's decodes.  The
      precompute and the trainer run under PyTorch's own TF32 switches
      (cuDNN convolutions in TF32 by default), every comparison and every
-     other phase with TF32 off.  Last: the kernels line (paths A, B,
-     precompute and validation), the card's name and power limit, the
-     device line.
+     other phase with TF32 off;
+  7. the serving path's measurement and ingestion entry points at the full
+     width of configs/*.yaml, under PyTorch's own TF32 switches as a user
+     runs them: ``python -m flamed_tts_tpu_torch.bench`` (bf16, the pinned
+     durations: its JSON line, each timed call's tgt_len, frame bucket and
+     audio seconds, frames a phoneme held to bench.FRAMES_PER_PHONEME, the
+     five times, the dispatch-floor probe and load1; the kernel launches of
+     one timed call, held to those of its shapes), ``bench_throughput``
+     (batch 4, nfe 128), ``profile_sample`` (its span line; the fused
+     call's dispatch and host read must be most of the wall), ``synthesize
+     --profile-dir`` (the trace must hold CUDA kernel events, the hand
+     kernels among them), the bench's weights as a reference-format .ckpt
+     through Flamed.from_pretrained held bit for bit against the .npz
+     route (state and wav), and the kernel wrappers refusing autograd on
+     the card; then K1 and K2 held against their plain versions and timed
+     as in phase 5 at the bench call's shapes (bf16, a random codec).
+     Last: the kernels line (paths A, B, precompute, validation and bench),
+     the card's name and power limit, the device line.
 """
 
 from __future__ import annotations
@@ -535,6 +550,177 @@ def training_phase(kernels, compare, codec, dev) -> dict:
             "validation": {"calls": val_calls, "launches": train_launches}}
 
 
+def bench_phase(kernels, dev) -> dict:
+    """Phase 7, the serving path's measurement and ingestion entry points
+    (see the module docstring).  Returns, for the kernels line, {"bench":
+    {"calls", "launches"}} of one timed bench call."""
+    import tempfile
+
+    from flamed_tts_tpu_torch import bench, bench_throughput, profile_sample
+    from flamed_tts_tpu_torch import synthesize as synth_cli
+    from flamed_tts_tpu_torch.config import load_default_config
+    from flamed_tts_tpu_torch.convert import params_to_jax
+    from flamed_tts_tpu_torch.convert_ckpt import flamed_state_dict
+    from flamed_tts_tpu_torch.models.flamed import Flamed
+    from flamed_tts_tpu_torch.ops.resunit import residual_stack_cuda, residual_unit_cuda
+    from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
+    from flamed_tts_tpu_torch.runtime.pytree_io import flatten_pytree
+    from flamed_tts_tpu_torch.utils.audio import save_wav
+    from flamed_tts_tpu_torch.utils.profiling import TRACE_FILE
+
+    t_phase = time.perf_counter()
+
+    def elapsed(step):
+        log(f"[phase 7] {step} done at {time.perf_counter() - t_phase:.1f} s")
+
+    # 7.1 the headline bench, as a user runs it (it prints its JSON line)
+    with tf32(*DEFAULT_TF32):
+        setting = tf32_label()
+        res = bench.main([])
+    model, codec, run = res["model"], res["codec"], res["run"]
+    n_phonemes = model._get_frontend()(bench.TEXT)[0].shape[1]
+    log(f"[bench] {setting}; {n_phonemes} phonemes; the line above: {json.dumps(res['report'])}")
+    lo, hi = bench.FRAMES_PER_PHONEME
+    for c, fpp in zip(res["calls"], bench.frames_per_phoneme(model, res["calls"])):
+        log(f"[bench] timed call seed {c['seed']}: {1e3 * c['seconds']:.1f} ms, tgt_len {c['tgt_len']} "
+            f"({fpp:.2f} frames a phoneme), frame bucket {c['frame_bucket']}, audio "
+            f"{c['audio_s']:.3f} s")
+        if not (lo <= fpp <= hi and c["frame_bucket"] >= c["tgt_len"]):
+            raise AssertionError(f"bench: {fpp:.2f} frames a phoneme outside [{lo}, {hi}] ({c})")
+    log(f"[bench] five timed calls (ms): {[round(1e3 * c['seconds'], 1) for c in res['calls']]}; "
+        f"dispatch-floor probe {res['report']['probe_ms']} ms (limit {bench.DISPATCH_LIMIT_MS} ms), "
+        f"load1 {res['report']['load1']}")
+    kernels.reset_launches()
+    with tf32(*DEFAULT_TF32):
+        out = run(1)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    calls = main_path_calls(codec, len(codec.pad_prompt_wav(bench.prompt_wav())[0]),
+                            int(out["frame_bucket"]))
+    log(f"[bench] kernel launches in one timed call (seed 1, frame bucket {out['frame_bucket']}): "
+        f"{json.dumps(launches)}")
+    if (launches != launch_counts(calls) or not launches["snake_filtered"]
+            or not launches["residual_unit"]):
+        raise AssertionError(f"bench: launches {launches}, expected {launch_counts(calls)}")
+
+    # where one warm bench call's time goes on the device
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with tf32(*DEFAULT_TF32), torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        run(1)
+        wall = 1e3 * (time.perf_counter() - w0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[bench] profiled call {wall:.1f} ms: device busy {busy:.1f} ms ({100 * busy / wall:.1f} %), "
+        f"{sum(e.count for e in events)} device kernels/copies")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"[bench]   {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    elapsed("bench")
+
+    # 7.2 the throughput bench, batch 4 at nfe 128 (it prints its JSON line)
+    with tf32(*DEFAULT_TF32):
+        setting = tf32_label()
+        thr = bench_throughput.main([])
+    log(f"[bench_throughput] {setting}; the line above: {json.dumps(thr['report'])}; batch "
+        f"times (ms) {[round(1e3 * t, 1) for t in thr['times']]}, audio s a batch {thr['seconds']}")
+    elapsed("bench_throughput")
+
+    # 7.3 host spans of the bench call (it prints its JSON line)
+    with tf32(*DEFAULT_TF32):
+        setting = tf32_label()
+        prof = profile_sample.main([])
+    spans = prof["spans_ms"]
+    fused = spans.get("fused_dispatch", 0.0) + spans.get("fused_get", 0.0)
+    log(f"[profile_sample] {setting}; spans (ms a call): {json.dumps(spans)}; residual {prof['residual_ms']} ms; "
+        f"wall {prof['wall_ms']} ms; fused_dispatch + fused_get {fused:.2f} ms "
+        f"({100 * fused / prof['wall_ms']:.1f} % of the wall)")
+    if set(spans) != {"frontend", "prompt_prep", "input_place", "prompt_place", "fused_dispatch",
+                      "fused_get"} or fused < 0.5 * prof["wall_ms"]:
+        raise AssertionError("profile_sample: spans missing, or the fused call is not most of the wall")
+    elapsed("profile_sample")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
+        # 7.4 synthesize --profile-dir: a torch.profiler trace with the card's kernels
+        save_wav(os.path.join(tmp, "p.wav"), bench.prompt_wav())
+        args = synth_cli.build_arg_parser().parse_args([
+            "--ckpt-path", "random", "--cfg-path", os.path.join(ROOT, "configs"), "--codec-dir",
+            "random", "--text", "Hello world.", "--prompt-list", "p.wav", "--prompt-dir", tmp,
+            "--output-dir", os.path.join(tmp, "out"), "--nsteps-durgen", "8", "--nsteps-denoiser",
+            "8", "--seed", "0", "--precision", "bf16", "--profile-dir", os.path.join(tmp, "prof")])
+        synth_cli.main(args)
+        trace_path = os.path.join(tmp, "prof", TRACE_FILE)
+        with open(trace_path, encoding="utf-8") as fin:
+            events = json.load(fin)["traceEvents"]
+        gpu = [e for e in events if e.get("cat") == "kernel"]
+        hand = {k: sum(1 for e in gpu if f"{k}_kernel" in e.get("name", "")) for k in SOURCES}
+        log(f"[synthesize --profile-dir] {trace_path}: {os.path.getsize(trace_path)} bytes, "
+            f"{len(events)} events, {len(gpu)} CUDA kernel events; hand kernels {json.dumps(hand)}")
+        if not gpu or not hand["snake_filtered"] or not hand["residual_unit"]:
+            raise AssertionError("the profile trace holds no CUDA kernel events of the hand kernels")
+        elapsed("synthesize --profile-dir")
+
+        # 7.5 the bench's weights as the reference's checkpoint: .ckpt and
+        # .npz through Flamed.from_pretrained, bit for bit
+        cfg = load_default_config()
+        params = {"prior": params_to_jax(model.prior.state_dict()),
+                  "prob": params_to_jax(model.prob.state_dict())}
+        ckpt, npz = os.path.join(tmp, "model.ckpt"), os.path.join(tmp, "model.npz")
+        torch.save({"state_dict": flamed_state_dict(params), "epoch": 0}, ckpt)
+        # uncompressed (the loader reads either): compressing these 480 MB
+        # takes a minute and a half
+        np.savez(npz, **flatten_pytree(params))
+        wavs, states = {}, {}
+        for name, path in (("ckpt", ckpt), ("npz", npz)):
+            m = Flamed.from_pretrained(cfg, path, device=dev)
+            states[name] = {k: v for mod in (m.prior, m.prob) for k, v in mod.state_dict().items()}
+            o = m.sample(text=bench.TEXT, prompt_raw=bench.prompt_wav(), codec=codec, seed=0)
+            wavs[name] = (o["wav"], int(o["tgt_len"][0]))
+            del m
+        same_state = all(torch.equal(v, states["npz"][k]) for k, v in states["ckpt"].items())
+        same_wav = wavs["ckpt"][1] == wavs["npz"][1] and np.array_equal(wavs["ckpt"][0], wavs["npz"][0])
+        log(f"[ckpt] {os.path.getsize(ckpt) / 2 ** 20:.1f} MiB reference-format .ckpt and "
+            f"{os.path.getsize(npz) / 2 ** 20:.1f} MiB .npz of the bench's weights through "
+            f"Flamed.from_pretrained on the card: state equal bit for bit {same_state}; seed 0: "
+            f"tgt_len {wavs['ckpt'][1]} vs {wavs['npz'][1]}, wav equal bit for bit {same_wav}")
+        if not (same_state and same_wav and len(states["ckpt"]) == len(states["npz"])):
+            raise AssertionError("the .ckpt route disagrees with the .npz route")
+        del states, wavs
+        elapsed("the .ckpt route")
+
+    # 7.6 the kernel wrappers refuse autograd on the card
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    c = 32
+    unit = {"act1": {"alpha": rnd(c, scale=0.3), "beta": rnd(c, scale=0.3)},
+            "act2": {"alpha": rnd(c, scale=0.3), "beta": rnd(c, scale=0.3)},
+            "conv1": {"w": rnd(c, c, 7, scale=0.05), "b": rnd(c, scale=0.1)},
+            "conv2": {"w": rnd(c, c, 1, scale=0.05), "b": rnd(c, scale=0.1)}}
+    guarded = {"snake_filtered": lambda x: snake_filtered_cuda(x, unit["act1"]["alpha"], unit["act1"]["beta"]),
+               "residual_unit": lambda x: residual_unit_cuda(x, unit, 3),
+               "residual_stack": lambda x: residual_stack_cuda(x, [unit, unit, unit])}
+    for name, fn in guarded.items():
+        x = rnd(1, 300, c).requires_grad_()
+        try:
+            fn(x)
+        except RuntimeError as exc:
+            refused = "no backward" in str(exc)
+        else:
+            refused = False
+        with torch.no_grad():
+            y = fn(x)
+        torch.cuda.synchronize()
+        log(f"[autograd] {name}: a CUDA input that requires grad under grad refused {refused}; "
+            f"under no_grad it runs: finite {bool(torch.isfinite(y).all())}, grad_fn {y.grad_fn}")
+        if not refused or not torch.isfinite(y).all():
+            raise AssertionError(f"{name}: the autograd guard failed on the card")
+    return {"bench": {"calls": calls, "launches": launches}}
+
+
 def train_step_breakdown(state, on_card, batch) -> None:
     """Where a warm training step's time goes: forward, backward and the
     AdamW update timed apart on the host clock (each ends in a
@@ -1003,12 +1189,20 @@ def main() -> int:
     for path in ("precompute", "validation"):
         time_path(path, runs[path]["calls"], torch.float32)
 
+    # 7. the serving path's measurement and ingestion entry points; then its
+    # kernels at the bench call's shapes (bf16, the random codec)
+    runs.update(bench_phase(kernels, dev))
+    time_path("bench", runs["bench"]["calls"], torch.bfloat16)
+
     notes = {"A": "one utterance's launches on path A", "B": "one utterance's launches on path B",
              "precompute": "one 17 s utterance's analysis in the precompute step (the encoder at "
                            "272000 samples)",
              "validation": "the trainer run's two validation-audio logs (steps 15 and 30: each "
                            "decodes one synthesized utterance at its frame bucket and its ground "
-                           "truth at its length)"}
+                           "truth at its length)",
+             "bench": "one timed call of python -m flamed_tts_tpu_torch.bench (bf16, a random "
+                      "codec, the pinned durations: the encoder over the 3 s prompt, the decoder "
+                      "over the call's frame bucket)"}
     entries = []
     for (name, dtype_name, path), shapes in per.items():
         rows = list(shapes.values())

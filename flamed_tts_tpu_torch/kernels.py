@@ -181,6 +181,29 @@ def pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+def refuse_grad(name: str, *trees) -> None:
+    """The wrappers' first check: raise where autograd would record through
+    a kernel, i.e. grad is enabled and a tensor among ``trees`` (tensors,
+    or dicts / lists of them) requires grad.  A kernel writes its output
+    through raw pointers, so the result would have no ``grad_fn`` and every
+    gradient upstream of it would vanish without an error."""
+    if not torch.is_grad_enabled():
+        return
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in leaves(v)]
+        return [tree] if isinstance(tree, torch.Tensor) else []
+
+    if any(t.requires_grad for tree in trees for t in leaves(tree)):
+        raise RuntimeError(
+            f"the {name} kernel has no backward yet: call it under torch.no_grad() or on "
+            "tensors that do not require grad (gradients through the kernels come with "
+            "ROADMAP Queue 1 item 12)")
+
+
 def require(t: torch.Tensor, what: str, shape=None, dtype=None, aligned: bool = False) -> None:
     """The wrappers' input check: CUDA, float32 or bfloat16 (exactly
     ``dtype`` where one is given), contiguous, shape; with ``aligned``

@@ -9,7 +9,8 @@ the staged path after ``FaCodec.encode_prompt``) and synthesizes the wav;
 ``sample_batch`` is the same for a batch of phoneme rows.  ``params`` is
 ``{"prior": state_dict, "prob": state_dict}`` (``convert.params_from_jax``
 makes them from JAX trees); without it ``init_params`` draws random
-weights.
+weights.  ``from_pretrained`` reads a converted ``.npz`` or the reference's
+PyTorch checkpoint.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from torch import nn
 
 from flamed_tts_tpu_torch.convert import params_from_jax
+from flamed_tts_tpu_torch.convert_ckpt import convert_flamed_checkpoint
 from flamed_tts_tpu_torch.device import resolve_device
 from flamed_tts_tpu_torch.models.prior.prior_generator import PriorGenerator
 from flamed_tts_tpu_torch.models.prob.prob_generator import ProbGenerator
@@ -36,6 +38,7 @@ from flamed_tts_tpu_torch.runtime.pytree_io import load_pytree_npz
 from flamed_tts_tpu_torch.runtime.sampler import BucketedSampler
 from flamed_tts_tpu_torch.text.frontend import EnglishFrontend
 from flamed_tts_tpu_torch.utils.audio import load_wav
+from flamed_tts_tpu_torch.utils.profiling import sample_span
 
 
 def truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
@@ -122,12 +125,18 @@ class Flamed:
                 p.data = p.data.to(dtype).to(p.dtype)
 
     @classmethod
-    def from_pretrained(cls, cfg: Dict, ckpt_path: str, **kwargs) -> "Flamed":
+    def from_pretrained(cls, cfg: Dict, ckpt_path: str, weights_only: bool = True,
+                        **kwargs) -> "Flamed":
         """Load a converted .npz checkpoint ({"prior", "prob"} flax trees,
-        the JAX package's format)."""
-        if not ckpt_path.endswith(".npz"):
-            raise ValueError(f"expected a converted .npz checkpoint, got {ckpt_path}")
-        tree = load_pytree_npz(ckpt_path)
+        the JAX package's format), or the reference's PyTorch
+        .ckpt/.pt/.bin (a Lightning checkpoint or a bare weight dict),
+        converted on the fly by ``convert_ckpt``; ``weights_only`` is
+        ``torch.load``'s."""
+        if ckpt_path.endswith(".npz"):
+            tree = load_pytree_npz(ckpt_path)
+        else:
+            sd = torch.load(ckpt_path, map_location="cpu", weights_only=weights_only)
+            tree = convert_flamed_checkpoint(sd)
         return cls(cfg, params={k: params_from_jax(tree[k]) for k in ("prior", "prob")}, **kwargs)
 
     def _get_frontend(self, lexicon_path=None, cleaners=("english_cleaners",)):
@@ -178,7 +187,8 @@ class Flamed:
         start_time = time.time()
 
         if text is not None:
-            ids, _, _ = self._get_frontend(lexicon_path, cleaners)(text)
+            with sample_span("frontend"):
+                ids, _, _ = self._get_frontend(lexicon_path, cleaners)(text)
         else:
             ids = np.asarray(phonemes, dtype=np.int64)
             if ids.ndim == 1:
@@ -190,9 +200,10 @@ class Flamed:
                 prompt_raw = load_wav(prompt_raw, sr=sr)
             prompt_raw = np.asarray(prompt_raw, dtype=np.float32)
             if fused:
-                padded, n_frames = codec.pad_prompt_wav(prompt_raw)
-                prompt_wav = padded[None, :]
-                prompt_frames = np.asarray([n_frames], dtype=np.int64)
+                with sample_span("prompt_prep"):
+                    padded, n_frames = codec.pad_prompt_wav(prompt_raw)
+                    prompt_wav = padded[None, :]
+                    prompt_frames = np.asarray([n_frames], dtype=np.int64)
             else:
                 codes, timbre = codec.encode_prompt(prompt_raw)
                 prompt_processed = codes

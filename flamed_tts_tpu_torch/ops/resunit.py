@@ -216,7 +216,9 @@ def _check_x(x: torch.Tensor, what: str) -> None:
 
 def residual_unit_cuda(x: torch.Tensor, p: Dict, dilation: int, prepared: Optional[Dict] = None) -> torch.Tensor:
     """One K2 launch at ``pick_tile``'s rows per block (the result has the
-    same bits at any tile that fits)."""
+    same bits at any tile that fits).  Refuses tensors that require grad
+    while grad is enabled: the kernel has no backward."""
+    kernels.refuse_grad("residual_unit", x, p, prepared)
     _check_x(x, "residual_unit")
     b, t, c = x.shape
     d = int(dilation)
@@ -235,7 +237,9 @@ def residual_unit_cuda(x: torch.Tensor, p: Dict, dilation: int, prepared: Option
 
 def residual_stack_cuda(x: torch.Tensor, units, dilations: Sequence[int] = STACK_DILATIONS,
                         prepared: Optional[List[Dict]] = None) -> torch.Tensor:
-    """One K3 launch; raises where ``stack_tile`` admits no tile."""
+    """One K3 launch; raises where ``stack_tile`` admits no tile, and on
+    tensors that require grad while grad is enabled (no backward)."""
+    kernels.refuse_grad("residual_stack", x, units, prepared)
     _check_x(x, "residual_stack")
     b, t, c = x.shape
     dil = tuple(int(d) for d in dilations)

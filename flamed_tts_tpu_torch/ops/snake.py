@@ -16,7 +16,10 @@ from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
 
 def snake_filtered_cuda(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torch.Tensor) -> torch.Tensor:
     """x (B, T, C) float32 or bfloat16 on the card; log_alpha, log_beta
-    (C,), read as float32 (a bfloat16 pair is upcast first)."""
+    (C,), read as float32 (a bfloat16 pair is upcast first).  Refuses
+    tensors that require grad while grad is enabled: the kernel has no
+    backward."""
+    kernels.refuse_grad("snake_filtered", x, log_alpha, log_beta)
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
     b, t, c = x.shape

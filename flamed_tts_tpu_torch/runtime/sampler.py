@@ -42,6 +42,7 @@ from flamed_tts_tpu_torch.models.prob.prob_generator import prob_sample
 from flamed_tts_tpu_torch.ops.length_regulator import length_regulate
 from flamed_tts_tpu_torch.ops.masking import mask_from_lengths
 from flamed_tts_tpu_torch.runtime.buckets import pick_bucket
+from flamed_tts_tpu_torch.utils.profiling import sample_span
 
 PCM_SCALE = 32767.0
 FIRST_FRAMES_PER_PHONEME = 9.0  # the budget before any call has been observed
@@ -176,13 +177,14 @@ class BucketedSampler:
         def dev(a):
             return torch.as_tensor(a, device=device)
 
-        if prompt_wav is None:
-            prompts_b = np.full((b, prompts.shape[1], p_bucket), vocab_pad, dtype=np.int64)
-            prompts_b[:, :, : min(p_in, p_bucket)] = prompts[:, :, :p_bucket]
-            prompts_t = dev(prompts_b)
-            prompt_lens_t = dev(np.minimum(np.asarray(prompt_lens, dtype=np.int64), p_bucket))
-            timbres_t = dev(np.asarray(timbres, dtype=np.float32))
-        phonemes_t, src_lens_t = dev(phonemes_b), dev(src_lens)
+        with sample_span("input_place"):
+            if prompt_wav is None:
+                prompts_b = np.full((b, prompts.shape[1], p_bucket), vocab_pad, dtype=np.int64)
+                prompts_b[:, :, : min(p_in, p_bucket)] = prompts[:, :, :p_bucket]
+                prompts_t = dev(prompts_b)
+                prompt_lens_t = dev(np.minimum(np.asarray(prompt_lens, dtype=np.int64), p_bucket))
+                timbres_t = dev(np.asarray(timbres, dtype=np.float32))
+            phonemes_t, src_lens_t = dev(phonemes_b), dev(src_lens)
 
         def result(latents, hiddens, logits, tgt_len_h, tgt_mask_h, wav_h):
             out = {"latents": latents, "prior_embs": hiddens, "prior_logits": logits,
@@ -215,20 +217,14 @@ class BucketedSampler:
             f_guess = pick_bucket(int(np.max(src_lens) * frames_per_phoneme_budget),
                                   self.frame_buckets)
             if prompt_wav is not None:
-                # int16 PCM on the wire, as on the way out: the prompt comes
-                # from a 16-bit file, so nothing is lost and the upload halves
-                wav_q = np.round(np.clip(np.asarray(prompt_wav, dtype=np.float32), -1.0, 1.0)
-                                 * PCM_SCALE).astype(np.int16)
-                wav_t = dev(wav_q[:, :, None])
-                frames_t = dev(np.asarray(prompt_frames, dtype=np.int64))
-
-            # everything below is queued on the device; nothing is read back
-            # before fetch()
-            if prompt_wav is not None:
-                prompts_t, prompt_lens_t, timbres_t = self._analyze_prompt(
-                    codec, wav_t, frames_t, p_bucket, vocab_pad)
-            enc_out, phone_dur, sil_dur, tgt_raw = self._stage1(
-                phonemes_t, src_lens_t, noise, generator, nsteps_durgen, temp_durgen)
+                with sample_span("prompt_place"):
+                    # int16 PCM on the wire, as on the way out: the prompt
+                    # comes from a 16-bit file, so nothing is lost and the
+                    # upload halves
+                    wav_q = np.round(np.clip(np.asarray(prompt_wav, dtype=np.float32), -1.0, 1.0)
+                                     * PCM_SCALE).astype(np.int16)
+                    wav_t = dev(wav_q[:, :, None])
+                    frames_t = dev(np.asarray(prompt_frames, dtype=np.int64))
 
             def stage2(f_bucket):
                 return self._stage2(enc_out, phone_dur, sil_dur, src_lens_t, prompts_t,
@@ -240,15 +236,29 @@ class BucketedSampler:
                 host = [t.cpu().numpy() for t in more + (res[3], res[4])]
                 return host + [None if res[5] is None else res[5].cpu().numpy()]
 
-            res = stage2(f_guess)
-            tgt_raw_h, tgt_len_h, tgt_mask_h, wav_h = fetch(res, tgt_raw)
+            # fused_dispatch: the host's time to enqueue the whole fused call
+            # (prompt analysis, both Euler loops, the decoder).  Everything in
+            # it is queued on the device and nothing is read back before
+            # fetch(); the one host read is fused_get, which waits for the
+            # device.
+            with sample_span("fused_dispatch"):
+                if prompt_wav is not None:
+                    prompts_t, prompt_lens_t, timbres_t = self._analyze_prompt(
+                        codec, wav_t, frames_t, p_bucket, vocab_pad)
+                enc_out, phone_dur, sil_dur, tgt_raw = self._stage1(
+                    phonemes_t, src_lens_t, noise, generator, nsteps_durgen, temp_durgen)
+                res = stage2(f_guess)
+            with sample_span("fused_get"):
+                tgt_raw_h, tgt_len_h, tgt_mask_h, wav_h = fetch(res, tgt_raw)
             observe(tgt_raw_h)
             if int(tgt_raw_h.max()) > f_guess and f_guess < self.frame_buckets[-1]:
                 # overflow: the durations stand (the JAX package gets the same
                 # ones again from the same key); only the stages that depend on
                 # the bucket run again
-                res = stage2(pick_bucket(int(tgt_raw_h.max()), self.frame_buckets))
-                tgt_len_h, tgt_mask_h, wav_h = fetch(res)
+                with sample_span("fused_dispatch"):
+                    res = stage2(pick_bucket(int(tgt_raw_h.max()), self.frame_buckets))
+                with sample_span("fused_get"):
+                    tgt_len_h, tgt_mask_h, wav_h = fetch(res)
             return result(res[0], res[1], res[2], tgt_len_h, tgt_mask_h, wav_h)
 
         enc_out, phone_dur, sil_dur, tgt_est = self._stage1(

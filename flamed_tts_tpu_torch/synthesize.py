@@ -14,9 +14,11 @@ The flags of the repository's root ``synthesize.py``, with two modes:
 
 the same output names (``{prompt}-{nd}-{nn}-{td}-{tn}.wav``, and a
 ``nfe{n}-temp{t}/`` sub-directory in metadata mode) and the same Avg-RTF
-printout.  ``--device`` is ``cuda`` (the default) or ``cpu``; ``--precision
-bf16`` rounds the model's and the codec's parameters to bfloat16.  There is
-no ``--profile-dir``: the root script's is a ``jax.profiler`` trace.
+printout.  ``--ckpt-path`` takes a converted ``.npz`` or the reference's
+PyTorch checkpoint (read with ``torch.load(weights_only=--weights-only)``).
+``--device`` is ``cuda`` (the default) or ``cpu``; ``--precision bf16``
+rounds the model's and the codec's parameters to bfloat16; ``--profile-dir``
+writes a ``torch.profiler`` Chrome trace of the synthesis there.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from flamed_tts_tpu_torch.config import load_default_config, load_yaml
 from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
 from flamed_tts_tpu_torch.models.flamed import Flamed
 from flamed_tts_tpu_torch.utils.audio import load_wav, save_wav, synth_filename
+from flamed_tts_tpu_torch.utils.profiling import trace
 
 SR = 16000
 
@@ -52,11 +55,9 @@ def str2bool(value) -> bool:
 def build_arg_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="python -m flamed_tts_tpu_torch.synthesize",
-        description="Flamed-TTS synthesis on one NVIDIA GPU (PyTorch/CUDA port).  "
-                    "The root synthesize.py's --profile-dir (a jax.profiler trace) has no "
-                    "counterpart here.")
+        description="Flamed-TTS synthesis on one NVIDIA GPU (PyTorch/CUDA port).")
     parser.add_argument("--ckpt-path", type=str, required=True,
-                        help="Converted .npz checkpoint, or 'random' for random init.")
+                        help="Converted .npz / PyTorch checkpoint, or 'random' for random init.")
     parser.add_argument("--cfg-path", type=str, required=True,
                         help="Merged config.yaml, or a directory of the config files.")
     parser.add_argument("--text", type=str, default=None, help="Text content (prompt-list mode).")
@@ -67,6 +68,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--metadata-file", "--text-file", dest="metadata_file", type=str,
                         default=None, help="Metadata file with lines formatted as target|prompt|text.")
     parser.add_argument("--output-dir", type=str, default=".", help="Directory to store outputs.")
+    parser.add_argument("--weights-only", type=str2bool, default=True,
+                        help="PyTorch checkpoint weights_only loading flag.")
     parser.add_argument("--nsteps-durgen", type=int, default=64)
     parser.add_argument("--nsteps-denoiser", type=int, default=64)
     parser.add_argument("--temp-durgen", type=float, default=0.3)
@@ -82,6 +85,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                              "bfloat16 (the codec then computes in bfloat16).")
     parser.add_argument("--seed", type=int, default=None, help="Sampling seed.")
     parser.add_argument("--lexicon-path", type=str, default=None)
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="Write a torch.profiler trace (trace.json) of the run to this directory.")
     return parser
 
 
@@ -106,10 +111,10 @@ def load_config(cfg_path: str) -> Dict:
     return load_default_config(cfg_path) if os.path.isdir(cfg_path) else load_yaml(cfg_path)
 
 
-def prepare_model(cfg: Dict, ckpt_path: str, device: str) -> Flamed:
+def prepare_model(cfg: Dict, ckpt_path: str, device: str, weights_only: bool = True) -> Flamed:
     if ckpt_path == "random":
         return Flamed(cfg, device=device)
-    return Flamed.from_pretrained(cfg, ckpt_path, device=device)
+    return Flamed.from_pretrained(cfg, ckpt_path, weights_only=weights_only, device=device)
 
 
 def get_codec(cfg: Dict, codec_dir: Optional[str], device: str) -> FaCodec:
@@ -236,15 +241,16 @@ def main(args: Optional[argparse.Namespace] = None) -> Optional[float]:
 
     cfg = load_config(args.cfg_path)
     codec = get_codec(cfg, args.codec_dir, args.device)
-    model = prepare_model(cfg, args.ckpt_path, args.device)
+    model = prepare_model(cfg, args.ckpt_path, args.device, args.weights_only)
     if args.precision == "bf16":
         model.cast_inference_params()
         codec.cast_inference_params()
 
-    if args.metadata_file:
-        rtf = synthesize_with_metadata(model, codec, args)
-    else:
-        rtf = synthesize_with_prompts(model, codec, args)
+    with trace(args.profile_dir):
+        if args.metadata_file:
+            rtf = synthesize_with_metadata(model, codec, args)
+        else:
+            rtf = synthesize_with_prompts(model, codec, args)
 
     if rtf is not None:
         print("=" * 20, "Avg RTF", "=" * 20)

@@ -273,3 +273,28 @@ def test_bf16_kernels_refuse_a_width_past_the_weight_stage(device, dtype):
     p = _unit_params(rng, 544, device, dtype)
     with pytest.raises(ValueError, match="does not fit"):
         residual_unit_cuda(_rand(rng, 1, 40, 544).to(device).to(dtype), p, 1)
+
+
+@pytest.mark.parametrize("kernel", ["snake_filtered", "residual_unit", "residual_stack"])
+def test_kernels_refuse_autograd_on_the_card(device, kernel):
+    """Under grad a CUDA tensor that requires grad is refused (the kernels
+    have no backward); under no_grad the same call launches."""
+    from flamed_tts_tpu_torch.ops.resunit import residual_stack_cuda, residual_unit_cuda
+    from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
+
+    rng = np.random.RandomState(5)
+    c = 32
+    p = {"act1": {"alpha": _rand(rng, c, scale=0.3), "beta": _rand(rng, c, scale=0.3)},
+         "act2": {"alpha": _rand(rng, c, scale=0.3), "beta": _rand(rng, c, scale=0.3)},
+         "conv1": {"w": _rand(rng, c, c, 7, scale=0.05), "b": _rand(rng, c, scale=0.1)},
+         "conv2": {"w": _rand(rng, c, c, 1, scale=0.05), "b": _rand(rng, c, scale=0.1)}}
+    p = {k: {n: v.to(device) for n, v in sub.items()} for k, sub in p.items()}
+    call = {"snake_filtered": lambda x: snake_filtered_cuda(x, p["act1"]["alpha"], p["act1"]["beta"]),
+            "residual_unit": lambda x: residual_unit_cuda(x, p, 3),
+            "residual_stack": lambda x: residual_stack_cuda(x, [p, p, p])}[kernel]
+    x = _rand(rng, 1, 300, c).to(device).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        call(x)
+    with torch.no_grad():
+        out = call(x)
+    assert out.shape == x.shape and out.grad_fn is None and torch.isfinite(out).all()

@@ -147,5 +147,9 @@ def test_cli_argument_validation(cli_dirs):
     with pytest.raises(ValueError, match="not found"):
         syn._validate_args(parser.parse_args(base + ["--prompt-dir", "d", "--metadata-file", "/no/m"]))
     assert parser.parse_args(base).device == "cuda"  # the card unless the caller asks for the CPU
-    with pytest.raises(SystemExit):  # the root script's jax.profiler flag is not carried over
-        parser.parse_args(base + ["--profile-dir", "x"])
+    # the root script's flags: a torch.profiler trace here, torch.load's weights_only
+    args = parser.parse_args(base + ["--profile-dir", "x", "--weights-only", "false"])
+    assert args.profile_dir == "x" and args.weights_only is False
+    assert parser.parse_args(base).weights_only is True and parser.parse_args(base).profile_dir is None
+    with pytest.raises(SystemExit):
+        parser.parse_args(base + ["--weights-only", "maybe"])

@@ -43,7 +43,7 @@ from flamed_tts_tpu_torch.train.losses import compute_losses, prior_ce_loss
 from flamed_tts_tpu_torch.train.step import (batch_to_device, init_train_state, train_step,
                                              warmup_cosine_schedule)
 
-from torch_parity_utils import ROOT, jax_params, small_config
+from torch_parity_utils import ROOT, jax_params, small_config, summaries_equal
 
 # fp32 on both sides, sums in another order
 LOSS_RTOL = 1e-5
@@ -405,10 +405,11 @@ def _tiny_config_dir(root, data_root):
     return cfg
 
 
-def test_train_cli_on_cpu(tmp_path):
+def test_train_cli_on_cpu(tmp_path, capsys, monkeypatch):
     """Three steps of ``python -m flamed_tts_tpu_torch.train --device cpu`` on
     a tiny config and five .npz samples, then two more from the full
-    state, then the checkpoint serves through Flamed.from_pretrained."""
+    state, then the checkpoint serves through Flamed.from_pretrained; the
+    port's summary of its metrics.jsonl is the tool's."""
     from flamed_tts_tpu_torch.models.flamed import Flamed
     from flamed_tts_tpu_torch.train.cli import main
 
@@ -430,6 +431,8 @@ def test_train_cli_on_cpu(tmp_path):
     assert {"last.npz", "train_state.pt"} <= ckpts and any(c.startswith("step2-val") for c in ckpts)
     assert (exp / "config.yaml").exists()
     assert main(args + ["--max-steps", "5", "--resume-full"]).step == 5
+    rc, text = summaries_equal(exp, capsys, monkeypatch, every=1)
+    assert rc == 0 and "| 5 |" in text and "val loss: step 2:" in text
     model = Flamed.from_pretrained(cfg, str(exp / "checkpoints" / "last.npz"), device="cpu")
     for name, module in (("prior", state.prior), ("prob", state.prob)):
         assert set(getattr(model, name).state_dict()) == set(module.state_dict())

@@ -2,7 +2,9 @@
 weights carried across with params_from_jax, a deterministic prompt."""
 
 import copy
+import importlib.util
 import os
+import sys
 
 import jax
 import numpy as np
@@ -48,3 +50,22 @@ def prompt_wav(seconds: float, seed: int = 0) -> np.ndarray:
     phase = 2 * np.pi * np.cumsum(f0) / 16000.0
     wav = sum(np.sin(k * phase) / k for k in range(1, 6)) * (0.5 + 0.5 * np.sin(2 * np.pi * 3 * t) ** 2)
     return (0.2 * wav + 0.01 * rng.randn(t.size)).astype(np.float32)
+
+
+def summaries_equal(exp_dir, capsys, monkeypatch, every=2):
+    """``python -m flamed_tts_tpu_torch.summarize_training`` against
+    ``tools/summarize_training.py`` on ``exp_dir``: the same return code,
+    stdout and stderr.  Returns (rc, stdout)."""
+    from flamed_tts_tpu_torch import summarize_training
+
+    spec = importlib.util.spec_from_file_location(
+        "summarize_training_tool", os.path.join(ROOT, "tools", "summarize_training.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    monkeypatch.setattr(sys, "argv", ["summarize_training.py", str(exp_dir), "--every", str(every)])
+    capsys.readouterr()  # what the caller printed before
+    rc_ref, ref = tool.main(), capsys.readouterr()
+    rc = summarize_training.main([str(exp_dir), "--every", str(every)])
+    out = capsys.readouterr()
+    assert (rc, out.out, out.err) == (rc_ref, ref.out, ref.err)
+    return rc, out.out
