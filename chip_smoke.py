@@ -60,11 +60,30 @@ Phases (any failure exits non-zero before the last line):
      --profile-dir`` (the trace must hold CUDA kernel events, the hand
      kernels among them), the bench's weights as a reference-format .ckpt
      through Flamed.from_pretrained held bit for bit against the .npz
-     route (state and wav), and the kernel wrappers refusing autograd on
-     the card; then K1 and K2 held against their plain versions and timed
-     as in phase 5 at the bench call's shapes (bf16, a random codec).
-     Last: the kernels line (paths A, B, precompute, validation and bench),
-     the card's name and power limit, the device line.
+     route (state and wav); then K1 and K2 held against their plain
+     versions and timed as in phase 5 at the bench call's shapes (bf16, a
+     random codec);
+  8. codec training and voice conversion: K2 at d = 2 and K1 at
+     cnn_predictor's width (C = 256), fp32 and bf16, against their plain
+     versions; under grad, each kernel's autograd Function (K1, K2 at every
+     shape of a codec-trainer step, K3 at the encoder's fp32 shapes) against
+     autograd through the plain chain, TF32 off: the forward, and the
+     gradients of the input and every parameter; ``python -m
+     flamed_tts_tpu_torch.train_codec`` at the JAX tool's defaults (batch 8,
+     160-frame crops, the default widths) on a fabricated corpus of four
+     speakers, under PyTorch's own TF32 switches: median step ms, steps/s,
+     peak memory, the mel L1 falling, one step's forward launches held to
+     its shapes, the kernels on the trained weights against their plain
+     versions, one dead-code revival; one deterministic step on the card
+     against the same on the CPU; the saved codec through
+     FaCodec.from_pretrained (its prompt codes on card and CPU); the
+     training decode with all three GRL heads at the reference's head sizes
+     (finite forward and backward, the GRL's sign); V2 voice conversion
+     and the redecoder with random weights, a 3 s source and target each;
+     then K1 and K2 timed as in phase 5 at the trainer's shapes, with the
+     backward of each Function beside autograd's through the plain chain.
+     Last: the kernels line (paths A, B, precompute, validation, bench and
+     codec_train), the card's name and power limit, the device line.
 """
 
 from __future__ import annotations
@@ -78,6 +97,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -143,6 +163,19 @@ FMA_LOOP_MS = {
 MMA_PADDING_T = (1, 15, 17, 47, 49, 333)
 TRAIN_UTTERANCES = 32  # the training phase's synthetic corpus
 TRAIN_STEPS = 30
+# phase 8: the codec trainer at the JAX tool's defaults (batch 8, crops of
+# 160 frames) on a corpus of a few speakers
+CODEC_UTTERANCES, CODEC_SPEAKERS = 24, 4
+CODEC_BATCH, CODEC_CROP, CODEC_STEPS = 8, 160, 40
+CODEC_UP_ENC, CODEC_UP_DEC = (2, 4, 5, 5), (5, 5, 4, 2)
+REDECODER_WIDTH = 1024
+TRAIN_CODEC_WEIGHTS = {"mel": 1.0, "wav": 10.0, "commit": 1.0, "phone": 2.0, "spk": 1.0, "latreg": 1.0}
+# a Function's gradients against autograd through the plain chain: both are
+# the plain chain's VJP at the same input, so only cuDNN's choice of
+# backward algorithm between two calls may part them
+GRAD_TOL = 1e-5
+GRAD_FUNCTIONS = {"snake_filtered": "SnakeFiltered", "residual_unit": "ResidualUnit",
+                  "residual_stack": "ResidualStack"}
 # PyTorch's own TF32 switches (matmul, cuDNN), read before main() turns TF32
 # off for the comparisons: the precompute and the trainer are timed under
 # these, as whoever starts them on their own runs them
@@ -562,8 +595,6 @@ def bench_phase(kernels, dev) -> dict:
     from flamed_tts_tpu_torch.convert import params_to_jax
     from flamed_tts_tpu_torch.convert_ckpt import flamed_state_dict
     from flamed_tts_tpu_torch.models.flamed import Flamed
-    from flamed_tts_tpu_torch.ops.resunit import residual_stack_cuda, residual_unit_cuda
-    from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
     from flamed_tts_tpu_torch.runtime.pytree_io import flatten_pytree
     from flamed_tts_tpu_torch.utils.audio import save_wav
     from flamed_tts_tpu_torch.utils.profiling import TRACE_FILE
@@ -689,36 +720,399 @@ def bench_phase(kernels, dev) -> dict:
         del states, wavs
         elapsed("the .ckpt route")
 
-    # 7.6 the kernel wrappers refuse autograd on the card
-    gen = torch.Generator(device=dev).manual_seed(6)
-
-    def rnd(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
-
-    c = 32
-    unit = {"act1": {"alpha": rnd(c, scale=0.3), "beta": rnd(c, scale=0.3)},
-            "act2": {"alpha": rnd(c, scale=0.3), "beta": rnd(c, scale=0.3)},
-            "conv1": {"w": rnd(c, c, 7, scale=0.05), "b": rnd(c, scale=0.1)},
-            "conv2": {"w": rnd(c, c, 1, scale=0.05), "b": rnd(c, scale=0.1)}}
-    guarded = {"snake_filtered": lambda x: snake_filtered_cuda(x, unit["act1"]["alpha"], unit["act1"]["beta"]),
-               "residual_unit": lambda x: residual_unit_cuda(x, unit, 3),
-               "residual_stack": lambda x: residual_stack_cuda(x, [unit, unit, unit])}
-    for name, fn in guarded.items():
-        x = rnd(1, 300, c).requires_grad_()
-        try:
-            fn(x)
-        except RuntimeError as exc:
-            refused = "no backward" in str(exc)
-        else:
-            refused = False
-        with torch.no_grad():
-            y = fn(x)
-        torch.cuda.synchronize()
-        log(f"[autograd] {name}: a CUDA input that requires grad under grad refused {refused}; "
-            f"under no_grad it runs: finite {bool(torch.isfinite(y).all())}, grad_fn {y.grad_fn}")
-        if not refused or not torch.isfinite(y).all():
-            raise AssertionError(f"{name}: the autograd guard failed on the card")
     return {"bench": {"calls": calls, "launches": launches}}
+
+
+def codec_train_calls(params, batch: int, n_samples: int) -> list:
+    """(kernel, T, C, dilation or 0, params, None, batch) of every forward
+    kernel launch of one codec-trainer step: the encoder over ``batch``
+    crops of ``n_samples`` samples, then the synthesis over their frames
+    (one K2 launch a unit, no K3)."""
+    unprepared = [[None] * 3 for _ in range(4)]
+    view = types.SimpleNamespace(enc_params=params["enc"], dec_params=params["dec"], fuse_blocks=False,
+                                 enc_prepared=unprepared, dec_prepared=unprepared,
+                                 up_ratios_enc=CODEC_UP_ENC, up_ratios_dec=CODEC_UP_DEC)
+    calls = encoder_calls(view, n_samples) + decoder_calls(view, n_samples // math.prod(CODEC_UP_ENC))
+    return [c + (batch,) for c in calls]
+
+
+def grad_check(name: str, kernel_fn, plain_fn, x, leaves, label: str, gen) -> tuple:
+    """The kernel's Function under grad against autograd through the plain
+    chain, on the card with TF32 off: the forward (TOL) and the gradients
+    of ``x`` and each of ``leaves`` for one upstream gradient, each within
+    GRAD_TOL of its leaf's largest gradient.  Returns (the largest error
+    over the leaf scale, the Function's backward ms, autograd's backward ms
+    through the plain chain), both backward times from CUDA events over
+    retained graphs."""
+    x = x.detach().requires_grad_()
+    out, ref = kernel_fn(x), plain_fn(x)
+    if out.grad_fn is None or type(out.grad_fn).__name__.split("Backward")[0] not in GRAD_FUNCTIONS[name]:
+        raise AssertionError(f"{name} {label}: the result carries no gradient of the kernel's Function "
+                             f"({out.grad_fn})")
+    g = torch.randn(out.shape, generator=gen, device=out.device)
+    wrt = [x, *leaves]
+    got = torch.autograd.grad(out, wrt, g, retain_graph=True)
+    want = torch.autograd.grad(ref, wrt, g, retain_graph=True)
+    fwd_ok = bool(torch.all((out - ref).abs() <= TOL + TOL * ref.abs()))
+    worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(got, want))
+    k_ms = time_ms(lambda: torch.autograd.grad(out, wrt, g, retain_graph=True), 3)
+    p_ms = time_ms(lambda: torch.autograd.grad(ref, wrt, g, retain_graph=True), 3)
+    log(f"[phase 8] [grad] {name} {label}: forward {'ok' if fwd_ok else 'FAIL'}; gradients of x and "
+        f"{len(leaves)} parameters: largest error {worst:.3e} of the leaf's largest gradient (tol "
+        f"{GRAD_TOL:g}: the same plain VJP at the same input, cuDNN's backward algorithms); backward "
+        f"{k_ms:.3f} ms (plain forward recomputed + its VJP) vs autograd through the plain chain "
+        f"{p_ms:.3f} ms")
+    if not fwd_ok or not worst <= GRAD_TOL:
+        raise AssertionError(f"{name} {label}: the Function's gradient disagrees with the plain chain's")
+    return worst, k_ms, p_ms
+
+
+def codec_step_breakdown(params, opt, batch, n_q) -> None:
+    """Where a warm codec-trainer step's time goes, under PyTorch's own TF32
+    switches: the forward (loss), the backward and the update timed apart
+    on the host clock (each ends in a synchronize); the device's busy share
+    and top kernels from torch.profiler over one step."""
+    from flamed_tts_tpu_torch import train_codec
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    flat = train_codec.leaves(params)
+    with tf32(*DEFAULT_TF32):
+        setting = tf32_label()
+        (total, _), fwd_ms = timed(lambda: train_codec.loss_fn(params, *batch, n_q, TRAIN_CODEC_WEIGHTS))
+        grads, bwd_ms = timed(lambda: torch.autograd.grad(total, flat, allow_unused=True))
+        _, opt_ms = timed(lambda: opt.step([torch.zeros_like(p) if g is None else g
+                                            for p, g in zip(flat, grads)]))
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            _, wall = timed(lambda: train_codec.train_step(params, opt, *batch, n_q, TRAIN_CODEC_WEIGHTS))
+    log(f"[phase 8] [codec breakdown] {setting}: forward {fwd_ms:.1f} ms, backward {bwd_ms:.1f} ms, "
+        f"update {opt_ms:.1f} ms")
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    log(f"[phase 8] [codec breakdown] profiled step {wall:.1f} ms: device busy {busy:.1f} ms "
+        f"({100 * busy / wall:.1f} %), {sum(e.count for e in events)} device kernels/copies")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"[phase 8] [codec breakdown]   {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} "
+            f"{e.key[:90]}")
+
+
+def codec_train_phase(kernels, compare, dev) -> dict:
+    """Phase 8, codec training and voice conversion (see the module
+    docstring).  Returns, for the kernels line, {"codec_train": {"calls",
+    "launches", "backward"}}: one trainer step's forward kernel calls, its
+    launches and the backward times per (kernel, T, C, d, batch)."""
+    import tempfile
+
+    from flamed_tts_tpu_torch import train_codec
+    from flamed_tts_tpu_torch.convert import params_to_jax
+    from flamed_tts_tpu_torch.data.synthetic import fabricate_speaker_corpus
+    from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
+    from flamed_tts_tpu_torch.models.facodec import extras
+    from flamed_tts_tpu_torch.models.facodec.encoder import init_encoder_params
+    from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
+    from flamed_tts_tpu_torch.ops.resunit import (pick_tile, residual_stack_cuda, residual_stack_reference,
+                                                  residual_unit_cuda, residual_unit_reference,
+                                                  stack_tile, unit_smem_bytes)
+    from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
+    from flamed_tts_tpu_torch.runtime.pytree_io import flatten_pytree
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+
+    def elapsed(step):
+        log(f"[phase 8] {step} done at {time.perf_counter() - t_phase:.1f} s")
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def unit(c, dtype=torch.float32):
+        s = 1.0 / math.sqrt(7 * c)
+        return {"act1": {"alpha": rnd(c, scale=0.3), "beta": rnd(c, scale=0.3)},
+                "act2": {"alpha": rnd(c, scale=0.3), "beta": rnd(c, scale=0.3)},
+                "conv1": {"w": rnd(c, c, 7, scale=s, dtype=dtype), "b": rnd(c, scale=0.1, dtype=dtype)},
+                "conv2": {"w": rnd(c, c, 1, scale=s, dtype=dtype), "b": rnd(c, scale=0.1, dtype=dtype)}}
+
+    # 8.1 K2 at d = 2 and K1 at cnn_predictor's shapes (C = 256), fp32 and bf16,
+    # and K2 at d = 2 where the last 16-row mma tile is ragged
+    unit_fn = kernels.library("residual_unit").residual_unit_smem_bytes
+    for dtype in (torch.float32, torch.bfloat16):
+        item = 2 if dtype == torch.bfloat16 else 4
+        units = [unit(256, dtype) for _ in range(3)]
+        for t in (160, 1200) + MMA_PADDING_T:
+            tile = pick_tile(t, 256, 2, item)
+            if unit_fn(256, 2, tile, item) != unit_smem_bytes(256, 2, tile, item):
+                raise AssertionError("unit_smem_bytes disagrees with residual_unit.cu at d = 2")
+            x = rnd(8 if t == 160 else 1, t, 256, dtype=dtype)
+            for p, d in zip(units, (1, 2, 3)):
+                compare("residual_unit", residual_unit_cuda(x, p, d), residual_unit_reference(x, p, d),
+                        f"[phase 8] cnn_predictor ({x.shape[0]}, {t}, 256) d={d} tile={tile if d == 2 else '-'}")
+            a = units[0]["act1"]
+            compare("snake_filtered", snake_filtered_cuda(x, a["alpha"], a["beta"]),
+                    snake_filtered_reference(x, a["alpha"], a["beta"]),
+                    f"[phase 8] cnn_predictor ({x.shape[0]}, {t}, 256)")
+        # d = 2 beside d = 1 and 3 at the training decode's predictor shape
+        x = rnd(8, 160, 256, dtype=dtype)
+        ms = [graph_ms(lambda: residual_unit_cuda(x, p, d), 20) for p, d in zip(units, (1, 2, 3))]
+        log(f"[phase 8] [time] residual_unit {DTYPE_NAMES[dtype]} (8, 160, 256) d = 1 / 2 / 3: "
+            f"{ms[0]:.4f} / {ms[1]:.4f} / {ms[2]:.4f} ms (graph)")
+    elapsed("8.1 K2 at d = 2 and K1 at C = 256")
+
+    # 8.2 gradients through the kernels at the codec trainer's shapes, TF32 off
+    params = train_codec.tree_map(lambda t: t.to(dev).requires_grad_(),
+                                  train_codec.init_params(torch.Generator().manual_seed(0), 3))
+    calls = codec_train_calls(params, CODEC_BATCH, CODEC_CROP * 200)
+    backward, seen = {}, set()
+    ggen = torch.Generator(device=dev).manual_seed(9)
+    worst_all = 0.0
+    for name, t, c, d, p, _, b in calls:
+        if (name, t, c, d) in seen:
+            continue
+        seen.add((name, t, c, d))
+        x = rnd(b, t, c)
+        if name == "snake_filtered":
+            leaves = [p["alpha"], p["beta"]]
+            kfn = lambda x: snake_filtered_cuda(x, p["alpha"], p["beta"])  # noqa: E731
+            pfn = lambda x: snake_filtered_reference(x, p["alpha"], p["beta"])  # noqa: E731
+        else:
+            leaves = [p[m][k] for m in ("act1", "conv1", "act2", "conv2") for k in p[m]]
+            kfn = lambda x: residual_unit_cuda(x, p, d)  # noqa: E731
+            pfn = lambda x: residual_unit_reference(x, p, d)  # noqa: E731
+        worst, k_ms, p_ms = grad_check(name, kfn, pfn, x, leaves, f"({b}, {t}, {c}) d={d}", ggen)
+        worst_all = max(worst_all, worst)
+        backward[(name, t, c, d)] = (k_ms, p_ms)
+    # K3 at the encoder shapes stack_tile admits in fp32 (the trainer runs K2 per unit)
+    for blk, t in zip(params["enc"]["blocks"][:2], (CODEC_CROP * 200, CODEC_CROP * 100)):
+        c = blk["act"]["alpha"].numel()
+        if stack_tile(c, torch.float32) is None:
+            continue
+        leaves = [u[m][k] for u in blk["res"] for m in ("act1", "conv1", "act2", "conv2") for k in u[m]]
+        grad_check("residual_stack", lambda x: residual_stack_cuda(x, blk["res"]),
+                   lambda x: residual_stack_reference(x, blk["res"]), rnd(CODEC_BATCH, t, c), leaves,
+                   f"({CODEC_BATCH}, {t}, {c})", ggen)
+    torch.cuda.empty_cache()
+    elapsed(f"8.2 gradients through K1/K2/K3 (largest error {worst_all:.3e} of a leaf's scale)")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_codec_") as tmp:
+        # 8.3 the codec trainer CLI at the JAX tool's defaults, under PyTorch's
+        # own TF32 switches
+        seconds = np.random.RandomState(1).uniform(3.0, 8.0, CODEC_UTTERANCES)
+        corpus = fabricate_speaker_corpus(os.path.join(tmp, "corpus"), seconds, CODEC_SPEAKERS, seed=0)
+        out_dir = os.path.join(tmp, "codec")
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with tf32(*DEFAULT_TF32):
+            setting = tf32_label()
+            res = train_codec.main(["--corpus", corpus, "--out-dir", out_dir, "--steps", str(CODEC_STEPS),
+                                    "--batch", str(CODEC_BATCH), "--crop-frames", str(CODEC_CROP),
+                                    "--log-every", "5", "--device", dev.type])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "metrics.jsonl"), encoding="utf-8") as fin:
+            rows = [json.loads(x) for x in fin]
+        warm = res["step_s"][3:]
+        mel = [r["mel_l1"] for r in rows]
+        finite = all(np.isfinite(r[k]) for r in rows for k in ("total", "mel_l1", "wav_l1", "commit",
+                                                                "phone_ce", "spk_ce"))
+        log(f"[phase 8] [train_codec] {setting}; {CODEC_STEPS} steps at batch {CODEC_BATCH}, crop "
+            f"{CODEC_CROP} frames, {CODEC_UTTERANCES} utterances of {CODEC_SPEAKERS} speakers "
+            f"({seconds.sum():.1f} s) in {wall:.1f} s; median step {1e3 * np.median(warm):.1f} ms "
+            f"(steps 4-{CODEC_STEPS}, host clock), {1 / np.median(warm):.2f} steps/s, first step "
+            f"{1e3 * res['step_s'][0]:.0f} ms; peak memory {torch.cuda.max_memory_allocated() / gib:.2f} GiB; "
+            f"skipped updates {res['opt'].total_notfinite}")
+        log(f"[phase 8] [train_codec] mel_l1 at steps {[r['step'] for r in rows]}: {mel}; total "
+            f"{[r['total'] for r in rows]}; code usage at the last log {rows[-1]['code_usage']}")
+        saved = sorted(os.listdir(out_dir))
+        if (not finite or len(res["step_s"]) != CODEC_STEPS or not mel[-1] < mel[0]
+                or res["opt"].total_notfinite or "ns3_facodec_decoder.npz" not in saved):
+            raise AssertionError(f"codec trainer: finite {finite}, mel_l1 {mel}, files {saved}")
+        # one step's forward launches, held to the count of its shapes
+        trained = res["params"]
+        wav_b, lab_b, spk_b = (torch.as_tensor(a, device=dev) for a in train_codec.make_batch(
+            np.random.RandomState(5), *train_codec.load_corpus(corpus, set())[:3], CODEC_BATCH, CODEC_CROP))
+        n_q = [extras.quantizer_counts(CODEC_BATCH, len(g), 0.25, torch.Generator(device=dev).manual_seed(0),
+                                       dev) for g in trained["dec"]["quantizers"]]
+        opt = train_codec.FiniteAdam(train_codec.leaves(trained), train_codec.warmup_cosine_decay(0.0, 10))
+        kernels.reset_launches()
+        with tf32(*DEFAULT_TF32):
+            train_codec.train_step(trained, opt, wav_b, lab_b, spk_b, n_q, TRAIN_CODEC_WEIGHTS)
+        torch.cuda.synchronize()
+        step_launches = dict(kernels.launches)
+        expected = launch_counts(calls)
+        log(f"[phase 8] [train_codec] one step's launches {json.dumps(step_launches)}, expected from its "
+            f"shapes {json.dumps(expected)} (forward only: the backward is the plain chains' VJPs)")
+        if step_launches != expected:
+            raise AssertionError("the codec trainer's step launched other kernels than its shapes give")
+        codec_step_breakdown(trained, opt, (wav_b, lab_b, spk_b), n_q)
+        # the kernels after optimizer steps read the live weights: each encoder
+        # block's first unit and snake against their plain versions on them
+        with torch.no_grad():
+            for blk, t in zip(trained["enc"]["blocks"], (32000, 16000, 4000, 800)):
+                c = blk["act"]["alpha"].numel()
+                x = rnd(1, t, c)
+                compare("residual_unit", residual_unit_cuda(x, blk["res"][0], 1),
+                        residual_unit_reference(x, blk["res"][0], 1),
+                        f"[phase 8] trained weights after {CODEC_STEPS + 1} steps (1, {t}, {c}) d=1")
+        # dead-code revival once on the card's parameters
+        n_rev = train_codec.revive_dead_codes(trained, wav_b.cpu().numpy(), np.random.RandomState(6))
+        fin = all(bool(torch.isfinite(t).all()) for t in train_codec.leaves(trained))
+        log(f"[phase 8] [train_codec] revive_dead_codes on the card's parameters: {n_rev} rows revived, "
+            f"parameters finite {fin}")
+        if not fin:
+            raise AssertionError("dead-code revival left non-finite parameters")
+        del res, trained, opt
+        torch.cuda.empty_cache()
+        elapsed("8.3 the codec trainer")
+
+        # one deterministic step on the card and on the CPU, TF32 off: two
+        # updates (the first at the schedule's lr 0) on a smaller batch, eps
+        # 1e-4 in place of 1e-8 (a parameter whose gradient is rounding noise,
+        # a bias before a norm, moves +-lr at 1e-8 with a sign that differs
+        # between the devices)
+        start = train_codec.init_params(torch.Generator().manual_seed(3), CODEC_SPEAKERS)
+        batch = train_codec.make_batch(np.random.RandomState(7), *train_codec.load_corpus(corpus, set())[:3],
+                                       2, 40)
+        n_q_cpu = [extras.quantizer_counts(2, n, 0.5, torch.Generator().manual_seed(1)) for n in (1, 2, 3)]
+        out = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            p = train_codec.tree_map(lambda t: t.clone().to(device).requires_grad_(), start)
+            flat = train_codec.leaves(p)
+            opt = train_codec.FiniteAdam(flat, train_codec.warmup_cosine_decay(2e-4, 10), eps=1e-4)
+            args = [torch.as_tensor(a, device=device) for a in batch]
+            m = train_codec.train_step(p, opt, *args, [n.to(device) for n in n_q_cpu], TRAIN_CODEC_WEIGHTS)
+            total, _ = train_codec.loss_fn(p, *args, [n.to(device) for n in n_q_cpu], TRAIN_CODEC_WEIGHTS)
+            grads = torch.autograd.grad(total, flat, allow_unused=True)
+            g_norm = float(torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in grads if g is not None])))
+            opt.step([torch.zeros_like(t) if g is None else g for t, g in zip(flat, grads)])
+            out[where] = ({k: float(v) for k, v in m.items() if k != "code_usage"}, g_norm,
+                          [t.detach().cpu() for t in flat])
+        (mg, ng, pg), (mc, nc, pc) = out["card"], out["cpu"]
+        loss_rel = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+        norm_rel = abs(ng - nc) / nc
+        paths = list(flatten_pytree(params_to_jax(start)))
+        excess = {k: (a - b).abs() - (1e-5 + 1e-4 * b.abs()) for k, a, b in zip(paths, pg, pc)}
+        worst = max(float(e.max()) for e in excess.values())
+        # a ReLU input of a transformer's conv FFN within rounding of 0 takes the
+        # other branch on one device and moves the update of the one output
+        # channel it belongs to: the only place a parameter may lie outside
+        outside = {k: e for k, e in excess.items() if float(e.max()) > 0.0}
+        channels = {(k.rsplit("/", 1)[0], int(c)) for k, e in outside.items()
+                    for c in torch.nonzero(e > 0)[:, 0]}
+        ties_only = all(k.endswith(("/ffn1/w", "/ffn1/b")) for k in outside) and len(channels) <= 8
+        moved = max(float((b - s).abs().max()) for b, s in zip(pc, train_codec.leaves(start)))
+        log(f"[phase 8] [train_codec card vs CPU] one step, batch 2 x 40 frames, TF32 off: losses max rel "
+            f"diff {loss_rel:.3e} (tol 1e-4), grad_norm {ng:.5f} vs {nc:.5f}, rel {norm_rel:.3e} (tol "
+            f"1e-3); parameters after two updates: worst excess over 1e-5 abs + 1e-4 rel {worst:.3e} "
+            f"(<= 0 passes), {sum(int((e > 0).sum()) for e in outside.values())} of "
+            f"{sum(t.numel() for t in pc)} elements outside, in {sorted(outside)}: conv-FFN output "
+            f"channels {sorted(channels)} (ReLU ties, at most 8 pass), largest move {moved:.3e}")
+        if not (loss_rel <= 1e-4 and norm_rel <= 1e-3 and ties_only and moved > 1e-5):
+            raise AssertionError("a codec-trainer step on the card disagrees with the same on the CPU")
+        del out, pg, pc
+        elapsed("8.3 card vs CPU step")
+
+        # the saved codec through FaCodec.from_pretrained: prompt codes on the
+        # card and on the CPU (TF32 off)
+        prompt = prompt_wav(3.0, seed=8)
+        codes_g, timbre_g = FaCodec.from_pretrained(out_dir, device=dev).encode_prompt(prompt)
+        codes_c, timbre_c = FaCodec.from_pretrained(out_dir, device="cpu").encode_prompt(prompt)
+        n_diff = int((codes_g != codes_c).sum())
+        log(f"[phase 8] [train_codec] the saved codec through FaCodec.from_pretrained, a 3 s prompt: "
+            f"{n_diff} of {codes_c.size} RVQ codes differ between the card and the CPU; timbre max abs "
+            f"diff {float(np.abs(timbre_g - timbre_c).max()):.3e}")
+        if codes_g.shape != (6, 240) or not np.isfinite(timbre_g).all():
+            raise AssertionError("the trained codec did not analyse a prompt on the card")
+        elapsed("8.3 the saved codec")
+
+    # 8.4 the training decode with all three GRL heads at the reference's head
+    # sizes (phone 5003, speaker 245200), random decoder from a seed
+    g = torch.Generator().manual_seed(4)
+    dec = train_codec.tree_map(lambda t: t.to(dev), train_codec.init_params(g, 3)["dec"])
+    heads = train_codec.tree_map(lambda t: t.to(dev).requires_grad_(), extras.init_decoder_training_heads(
+        g, use_gr_residual_f0=True, use_gr_residual_phone=True, use_gr_x_timbre=True))
+    quantized = [rnd(2, 160, 256).requires_grad_() for _ in range(3)]
+    spk = rnd(2, 256, scale=0.3)
+    draw = torch.rand(2, generator=gen, device=dev)
+    kernels.reset_launches()
+    out = extras.decoder_training_forward(dec, heads, quantized, spk, draw, use_gr_residual_f0=True,
+                                          use_gr_residual_phone=True, use_gr_x_timbre=True)
+    loss = sum(v.float().pow(2).mean() for v in out.values())
+    grads = torch.autograd.grad(loss, quantized + train_codec.leaves(heads))
+    torch.cuda.synchronize()
+    dec_launches = dict(kernels.launches)
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(x).all()) for x in grads)
+    probe = quantized[2].detach().requires_grad_()
+    g_grl, = torch.autograd.grad(extras.cnn_predictor(extras.gradient_reversal(probe),
+                                                      heads["res_phone_predictor"])[0].sum(), probe)
+    g_plain, = torch.autograd.grad(extras.cnn_predictor(probe, heads["res_phone_predictor"])[0].sum(), probe)
+    sign_err = float((g_grl + g_plain).abs().max()) / float(g_plain.abs().max())
+    log(f"[phase 8] [training decode] outputs {({k: tuple(v.shape) for k, v in out.items()})}; forward and "
+        f"backward finite {finite}; launches {json.dumps(dec_launches)}; the residual phone probe's "
+        f"gradient through the GRL plus its gradient without: max abs {sign_err:.3e} of the gradient's "
+        f"largest (tol {GRAD_TOL:g}: negated)")
+    # K1: five heads' snakes + five of the synthesis; K2: five heads' three
+    # units + twelve of the synthesis
+    if (not finite or out["audio"].shape != (2, 160 * 200, 1) or not sign_err <= GRAD_TOL
+            or dec_launches != {"snake_filtered": 10, "residual_unit": 27, "residual_stack": 0}):
+        raise AssertionError("the training decode failed on the card")
+    del dec, heads, out, grads, quantized
+    torch.cuda.empty_cache()
+    elapsed("8.4 the training decode")
+
+    # 8.5 voice conversion with random weights (seed): V2 and the redecoder,
+    # each a 3 s source and a 3 s prompt -> wav, on the card and the CPU
+    g = torch.Generator().manual_seed(5)
+    v2_enc, v2_dec = init_encoder_params(g), extras.init_decoder_v2_params(g)
+    # the redecoder at the codec's synthesis width (configs/codec.yaml: 1024):
+    # at its reference default of 1280 the first block's units are 640 wide,
+    # past K2's 512 (ROADMAP Queue 2)
+    redec = extras.init_redecoder_params(g, upsample_initial_channel=REDECODER_WIDTH)
+    src, tgt = prompt_wav(3.0, seed=10), prompt_wav(3.0, seed=11) * 0.8
+    codec = FaCodec.from_pretrained(CODEC_DIR, device=dev)
+    cpu_codec = FaCodec.from_pretrained(CODEC_DIR, device="cpu")
+    with torch.no_grad():
+        vc = {}
+        for where, device, cd in (("card", dev, codec), ("cpu", torch.device("cpu"), cpu_codec)):
+            e, d = (train_codec.tree_map(lambda t: t.to(device), tr) for tr in (v2_enc, v2_dec))
+            s_t = torch.as_tensor(src, device=device)[None, :, None]
+            lat = extras.encoder_v2_forward(e, s_t)
+            feat = extras.encoder_v2_prosody_feature(s_t[:, :, 0])[:, :, : lat.shape[1]]
+            vc[where] = (extras.decoder_v2_quantize(d, lat, feat)[0].cpu().numpy(), cd.encode_prompt(src)[0])
+        e, d, r = (train_codec.tree_map(lambda t: t.to(dev), tr) for tr in (v2_enc, v2_dec, redec))
+        s_t, t_t = (torch.as_tensor(w, device=dev)[None, :, None] for w in (src, tgt))
+        kernels.reset_launches()
+        v2_wav = extras.v2_voice_conversion(e, d, s_t, t_t).cpu().numpy()
+        v2_launches = dict(kernels.launches)
+        tgt_timbre = torch.as_tensor(codec.encode_prompt(tgt)[1][None], device=dev)
+        kernels.reset_launches()
+        re_wav = extras.redecoder_forward(r, torch.as_tensor(vc["card"][1][:, None, :], device=dev),
+                                          tgt_timbre).cpu().numpy()
+        re_launches = dict(kernels.launches)
+    (c2g, scg), (c2c, scc) = vc["card"], vc["cpu"]
+    log(f"[phase 8] [voice conversion] V2 (random weights, seed 5), a 3 s source and a 3 s target: wav "
+        f"{v2_wav.shape}, finite {bool(np.isfinite(v2_wav).all())}, launches {json.dumps(v2_launches)}; "
+        f"{int((c2g != c2c).sum())} of {c2c.size} of the source's V2 codes differ between the card and "
+        f"the CPU (TF32 off)")
+    log(f"[phase 8] [voice conversion] redecoder (random weights) on codec_r5's codes of the source and "
+        f"the target's timbre: wav {re_wav.shape}, finite {bool(np.isfinite(re_wav).all())}, launches "
+        f"{json.dumps(re_launches)}; {int((scg != scc).sum())} of {scc.size} of the source's codes differ "
+        f"between the card and the CPU")
+    if (v2_wav.shape != (1, 48000, 1) or re_wav.shape != (1, 48000, 1) or not np.isfinite(v2_wav).all()
+            or not np.isfinite(re_wav).all()):
+        raise AssertionError("voice conversion did not give a finite 3 s wav on the card")
+    elapsed("8.5 voice conversion")
+    calls = codec_train_calls(train_codec.tree_map(lambda t: t.detach(), params), CODEC_BATCH, CODEC_CROP * 200)
+    return {"codec_train": {"calls": calls, "launches": step_launches, "backward": backward}}
 
 
 def train_step_breakdown(state, on_card, batch) -> None:
@@ -1122,17 +1516,18 @@ def main() -> int:
 
     # 5. each main-path shape: the kernel against its plain version, then
     # both timed
-    per = {}
+    per, backward = {}, {}
 
     def time_path(path, calls, dtype):
         """Each call's shape once: the kernel against its plain version, then
         both timed; repeated shapes count their calls."""
-        for name, t, ch, d, p, w in calls:
+        for name, t, ch, d, p, w, *batch in calls:
+            b = batch[0] if batch else 1
             rows = per.setdefault((name, DTYPE_NAMES[dtype], path), {})
-            if (t, ch, d) in rows:
-                rows[(t, ch, d)]["calls"] += 1
+            if (b, t, ch, d) in rows:
+                rows[(b, t, ch, d)]["calls"] += 1
                 continue
-            x = rand(1, t, ch, dtype=dtype)
+            x = rand(b, t, ch, dtype=dtype)
             if name == "snake_filtered":
                 run_k = lambda: snake_filtered_cuda(x, p["alpha"], p["beta"])
                 plain = lambda: snake_filtered_reference(x, p["alpha"], p["beta"])
@@ -1142,12 +1537,12 @@ def main() -> int:
             else:
                 run_k = lambda: residual_stack_cuda(x, p, prepared=w)
                 plain = lambda: residual_stack_reference(x, p)
-            compare(name, run_k(), plain(), f"path {path} shape (1, {t}, {ch}) d={d}", path=path)
-            work = t * ch * (1 + ch // 64) * (3 if name == "residual_stack" else 1)
+            compare(name, run_k(), plain(), f"path {path} shape ({b}, {t}, {ch}) d={d}", path=path)
+            work = b * t * ch * (1 + ch // 64) * (3 if name == "residual_stack" else 1)
             reps = max(3, min(50, int(2e8 // work)))
             k_ms, k_wall, p_ms = graph_ms(run_k, reps), time_ms(run_k, reps), time_ms(plain, reps)
-            b_ms, b_by = bound_ms(name, t, ch, dtype)
-            row = {"T": t, "C": ch, "d": d, "calls": 1, "ms": round(k_ms, 4),
+            b_ms, b_by = bound_ms(name, b * t, ch, dtype)
+            row = {**({"B": b} if batch else {}), "T": t, "C": ch, "d": d, "calls": 1, "ms": round(k_ms, 4),
                    "wall_ms": round(k_wall, 4), "plain_ms": round(p_ms, 4),
                    "bound_ms": round(b_ms, 5), "bound_by": b_by}
             extra = ""
@@ -1159,8 +1554,12 @@ def main() -> int:
             before = FMA_LOOP_MS.get((DTYPE_NAMES[dtype], name, t, ch, d))
             if before is not None:
                 extra += f"; its scalar-FMA predecessor read {before} ms (graph)"
-            rows[(t, ch, d)] = row
-            log(f"[time] path {path} {name} {DTYPE_NAMES[dtype]} (1, {t}, {ch}) d={d}: kernel "
+            if (name, t, ch, d) in backward.get(path, {}):
+                row["backward_ms"], row["plain_backward_ms"] = (round(v, 4) for v in backward[path][(name, t, ch, d)])
+                extra += (f"; backward (Function) {row['backward_ms']:.4f} ms, autograd through the plain "
+                          f"chain {row['plain_backward_ms']:.4f} ms")
+            rows[(b, t, ch, d)] = row
+            log(f"[time] path {path} {name} {DTYPE_NAMES[dtype]} ({b}, {t}, {ch}) d={d}: kernel "
                 f"{k_ms:.4f} ms (graph) / {k_wall:.4f} ms (per call), plain {p_ms:.4f} ms (per call), "
                 f"bound {b_ms:.5f} ms ({b_by}){extra}")
 
@@ -1194,6 +1593,14 @@ def main() -> int:
     runs.update(bench_phase(kernels, dev))
     time_path("bench", runs["bench"]["calls"], torch.bfloat16)
 
+    # 8. codec training and voice conversion; then K1 and K2 at the codec
+    # trainer's shapes, with the backward times of 8.2
+    t8 = time.perf_counter()
+    runs.update(codec_train_phase(kernels, compare, dev))
+    backward["codec_train"] = runs["codec_train"]["backward"]
+    time_path("codec_train", runs["codec_train"]["calls"], torch.float32)
+    log(f"[phase 8] done in {time.perf_counter() - t8:.1f} s (the timing of its shapes included)")
+
     notes = {"A": "one utterance's launches on path A", "B": "one utterance's launches on path B",
              "precompute": "one 17 s utterance's analysis in the precompute step (the encoder at "
                            "272000 samples)",
@@ -1202,12 +1609,19 @@ def main() -> int:
                            "truth at its length)",
              "bench": "one timed call of python -m flamed_tts_tpu_torch.bench (bf16, a random "
                       "codec, the pinned durations: the encoder over the 3 s prompt, the decoder "
-                      "over the call's frame bucket)"}
+                      "over the call's frame bucket)",
+             "codec_train": "the forward launches of one step of python -m "
+                            "flamed_tts_tpu_torch.train_codec (fp32, batch 8 crops of 160 frames: the "
+                            "encoder over 32000 samples, the synthesis over 160 frames; backward_ms is "
+                            "the Function's backward, the plain chain recomputed and its VJP, beside "
+                            "plain_backward_ms, autograd's backward through the plain chain)"}
     entries = []
     for (name, dtype_name, path), shapes in per.items():
         rows = list(shapes.values())
         tot = {k: sum(r[k] * r["calls"] for r in rows)
                for k in ("ms", "wall_ms", "plain_ms", "bound_ms")}
+        back = {k: round(sum(r[k] * r["calls"] for r in rows), 4)
+                for k in ("backward_ms", "plain_backward_ms") if all(k in r for r in rows)}
         by_ops = sum(r["bound_ms"] * r["calls"] for r in rows if r["bound_by"] == "operations")
         entries.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
@@ -1217,7 +1631,7 @@ def main() -> int:
             "bound_ms": round(tot["bound_ms"], 5),
             "wall_ms": round(tot["wall_ms"], 4),
             "bound_by": "operations" if by_ops * 2 >= tot["bound_ms"] else "bytes",
-            "library_ms": None,
+            "library_ms": None, **back,
             "note": f"sums over {notes[path]} at the shapes below; "
                     "ms is the wrapper's device time (CUDA graph replay), wall_ms and plain_ms "
                     "per-call CUDA-event time including the host's launch cost; library_ms is "

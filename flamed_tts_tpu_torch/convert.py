@@ -9,10 +9,13 @@
   (conv (out, in, k), conv-transpose (in, out, k)); they keep their
   nesting with every leaf a float tensor.
 
-``params_to_jax`` is the inverse for the prior and prob generators: a
-``state_dict`` (or any dict of tensors under the same names, such as their
+``params_to_jax`` is the inverse of both: a prior or prob ``state_dict`` (or
+any flat dict of tensors under the same dotted names, such as their
 gradients) becomes a ``{"params": ...}`` flax tree of float32 numpy arrays,
-which is what the JAX package's training checkpoints hold.
+which is what the JAX package's training checkpoints hold; a codec tree (the
+encoder, the decoder, the codec trainer's heads, the predictor heads, the
+redecoder and the V2 trees: nested dicts and lists, or a flat dict without a
+dotted name) becomes the same nesting of float32 numpy arrays.
 
 A leaf is a numpy array or a tensor.  A bfloat16 leaf (a bfloat16 tensor,
 or a numpy array of the ``bfloat16`` extension type that JAX arrays convert
@@ -74,11 +77,28 @@ def params_from_jax(tree: Any) -> Any:
     return codec_tree(tree)
 
 
-def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
+def _is_state_dict(tree: Any) -> bool:
+    return (isinstance(tree, dict) and bool(tree) and all(isinstance(v, torch.Tensor) for v in tree.values())
+            and any("." in k for k in tree))
+
+
+def _codec_to_numpy(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _codec_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_codec_to_numpy(v) for v in tree]
+    return np.ascontiguousarray(tree.detach().float().cpu().numpy())
+
+
+def params_to_jax(state_dict: Any) -> Any:
     """A prior or prob ``state_dict`` -> ``{"params": nested flax tree}``:
     Linear weights (out, in) become Dense kernels (in, out), Conv1d weights
     (Cout, Cin, K) become Conv kernels (K, Cin, Cout), the weights of the
-    ``EMBEDDINGS`` become ``embedding`` and 1-D (norm) weights ``scale``."""
+    ``EMBEDDINGS`` become ``embedding`` and 1-D (norm) weights ``scale``.
+    A codec tree -> the same nesting of float32 numpy arrays (the inverse
+    of ``codec_tree``)."""
+    if not _is_state_dict(state_dict):
+        return _codec_to_numpy(state_dict)
     tree: Dict = {}
     for name, value in state_dict.items():
         *path, leaf = name.split(".")

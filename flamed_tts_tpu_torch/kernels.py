@@ -10,6 +10,10 @@ one ``nvcc`` process each.
 ``launches`` counts, per kernel, the launches its wrapper has made; a run
 sets them to 0 with ``reset_launches()`` and reads them afterwards to show
 which kernels a path went through.
+
+Under grad each wrapper goes through a ``torch.autograd.Function`` whose
+forward is the kernel and whose backward is ``plain_vjp``: the plain
+chain's VJP, recomputed.  There are no backward kernels.
 """
 
 from __future__ import annotations
@@ -181,27 +185,31 @@ def pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def refuse_grad(name: str, *trees) -> None:
-    """The wrappers' first check: raise where autograd would record through
-    a kernel, i.e. grad is enabled and a tensor among ``trees`` (tensors,
-    or dicts / lists of them) requires grad.  A kernel writes its output
-    through raw pointers, so the result would have no ``grad_fn`` and every
-    gradient upstream of it would vanish without an error."""
-    if not torch.is_grad_enabled():
-        return
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records through a kernel call on ``tensors``:
+    grad is enabled and one of them requires grad.  A bfloat16 one then
+    raises: the kernels' backward is float32 (the codec trains in float32)."""
+    if not torch.is_grad_enabled() or not any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        return False
+    if any(isinstance(t, torch.Tensor) and t.dtype != torch.float32 for t in tensors):
+        raise RuntimeError("the kernels carry gradients in float32 only: a bfloat16 input or "
+                           "parameter that requires grad is refused under grad")
+    return True
 
-    def leaves(tree):
-        if isinstance(tree, dict):
-            tree = list(tree.values())
-        if isinstance(tree, (list, tuple)):
-            return [t for v in tree for t in leaves(v)]
-        return [tree] if isinstance(tree, torch.Tensor) else []
 
-    if any(t.requires_grad for tree in trees for t in leaves(tree)):
-        raise RuntimeError(
-            f"the {name} kernel has no backward yet: call it under torch.no_grad() or on "
-            "tensors that do not require grad (gradients through the kernels come with "
-            "ROADMAP Queue 1 item 12)")
+def plain_vjp(plain, inputs, grad_out: torch.Tensor, needs) -> tuple:
+    """The backward of a kernel's ``torch.autograd.Function``: its plain
+    version ``plain(*inputs)`` recomputed under grad on the saved input and
+    the live parameters, and ``torch.autograd.grad`` of it for each of
+    ``inputs`` whose ``needs`` entry is true (None for the others).  It is
+    the plain chain's VJP at the kernel's input; nothing of the forward is
+    kept between the two."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(plain(*leaves), wanted, grad_out))
+    return tuple(next(grads) if n else None for n in needs)
 
 
 def require(t: torch.Tensor, what: str, shape=None, dtype=None, aligned: bool = False) -> None:

@@ -25,74 +25,13 @@ import torch
 from flamed_tts_tpu_torch.config import load_default_config
 from flamed_tts_tpu_torch.convert import codec_tree
 from flamed_tts_tpu_torch.device import resolve_device
-from flamed_tts_tpu_torch.models.facodec.decoder import analyze, synthesize, vq2emb
-from flamed_tts_tpu_torch.models.facodec.encoder import encoder_forward
+from flamed_tts_tpu_torch.models.facodec.decoder import (analyze, init_decoder_params, synthesize,
+                                                         vq2emb)
+from flamed_tts_tpu_torch.models.facodec.encoder import encoder_forward, init_encoder_params
 from flamed_tts_tpu_torch.ops.masking import mask_from_lengths
 from flamed_tts_tpu_torch.ops.resunit import prepare_unit
 from flamed_tts_tpu_torch.runtime.buckets import DEFAULT_WAV_SECOND_BUCKETS, pick_bucket
 from flamed_tts_tpu_torch.runtime.pytree_io import load_pytree_npz
-
-
-def _conv(g: torch.Generator, c_out: int, c_in: int, k: int) -> Dict:
-    w = torch.randn((c_out, c_in, k), generator=g) / np.sqrt(c_in * k)
-    return {"w": w, "b": torch.zeros(c_out)}
-
-
-def _act(c: int) -> Dict:
-    return {"alpha": torch.zeros(c), "beta": torch.zeros(c)}
-
-
-def _unit(g: torch.Generator, c: int) -> Dict:
-    return {"act1": _act(c), "conv1": _conv(g, c, c, 7), "act2": _act(c), "conv2": _conv(g, c, c, 1)}
-
-
-def _random_encoder(g: torch.Generator, ngf: int, up_ratios, out_channels: int) -> Dict:
-    d = ngf
-    p: Dict = {"stem": _conv(g, d, 1, 7), "blocks": []}
-    for stride in up_ratios:
-        d *= 2
-        p["blocks"].append({"res": [_unit(g, d // 2) for _ in range(3)], "act": _act(d // 2),
-                            "down": _conv(g, d, d // 2, 2 * stride)})
-    p["final_act"] = _act(d)
-    p["out"] = _conv(g, out_channels, d, 3)
-    return p
-
-
-def _random_decoder(g: torch.Generator, dim: int, ch: int, up_ratios) -> Dict:
-    def lin(c_out, c_in):
-        return {"w": torch.randn((c_out, c_in), generator=g) * 0.02, "b": torch.zeros(c_out)}
-
-    def fvq():
-        return {"in_proj": lin(8, dim), "out_proj": lin(dim, 8),
-                "codebook": torch.randn((1024, 8), generator=g)}
-
-    def ln():
-        return {"g": torch.ones(dim), "b": torch.zeros(dim)}
-
-    layers = [{"ln1": ln(), "ln2": ln(),
-               "attn": {"in_proj_w": lin(3 * dim, dim)["w"], "in_proj_b": torch.zeros(3 * dim),
-                        "out_proj_w": lin(dim, dim)["w"], "out_proj_b": torch.zeros(dim)},
-               "ffn1": {"w": torch.randn((4 * dim, dim, 5), generator=g) * 0.02,
-                        "b": torch.zeros(4 * dim)},
-               "ffn2": lin(dim, 4 * dim)} for _ in range(4)]
-    p: Dict = {
-        "quantizers": [[fvq() for _ in range(n)] for n in (1, 2, 3)],
-        "timbre_encoder": {"layers": layers, "last_ln": ln()},
-        "timbre_linear": {"w": lin(2 * dim, dim)["w"],
-                          "b": torch.cat([torch.ones(dim), torch.zeros(dim)])},
-        "stem": _conv(g, ch, dim, 7),
-        "blocks": [],
-    }
-    for i, stride in enumerate(up_ratios):
-        c_in, c_out = ch // 2 ** i, ch // 2 ** (i + 1)
-        up = torch.randn((c_in, c_out, 2 * stride), generator=g) / np.sqrt(2 * c_in)
-        p["blocks"].append({"act": _act(c_in), "up": {"w": up, "b": torch.zeros(c_out)},
-                            "res": [_unit(g, c_out) for _ in range(3)]})
-    final = ch // 2 ** len(up_ratios)
-    p["final_act"] = _act(final)
-    p["out"] = _conv(g, 1, final, 7)
-    p["out"]["w"] = p["out"]["w"] * 0.01
-    return p
 
 
 class FaCodec:
@@ -140,9 +79,9 @@ class FaCodec:
         """Random weights with the converted checkpoints' structure."""
         cfg = codec_cfg or load_default_config()["codec_cfg"]
         enc, dec = cfg["encoder"], cfg["decoder"]
-        return cls(_random_encoder(generator, enc["ngf"], enc["up_ratios"], enc["out_channels"]),
-                   _random_decoder(generator, dec["in_channels"], dec["upsample_initial_channel"],
-                                   dec["up_ratios"]),
+        return cls(init_encoder_params(generator, enc["ngf"], enc["up_ratios"], enc["out_channels"]),
+                   init_decoder_params(generator, dec["in_channels"], dec["upsample_initial_channel"],
+                                       dec["up_ratios"]),
                    device=device, sr=cfg.get("sr", 16000),
                    up_ratios_enc=enc["up_ratios"], up_ratios_dec=dec["up_ratios"],
                    fuse_blocks=fuse_blocks)

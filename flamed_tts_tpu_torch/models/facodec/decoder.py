@@ -13,14 +13,19 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
+from flamed_tts_tpu_torch.models.facodec.encoder import init_act, init_conv, init_unit
 from flamed_tts_tpu_torch.models.facodec.quantize import linear, rvq_decode, rvq_encode
-from flamed_tts_tpu_torch.models.facodec.timbre import timbre_encoder_forward
+from flamed_tts_tpu_torch.models.facodec.timbre import (init_linear, init_timbre_params,
+                                                        timbre_encoder_forward)
 from flamed_tts_tpu_torch.ops.conv1d import conv1d, conv_transpose1d
 from flamed_tts_tpu_torch.ops.resunit import residual_stack
 from flamed_tts_tpu_torch.ops.snake import snake_filtered
+
+GROUP_SIZES = (1, 2, 3)  # prosody, content, residual quantizer counts
 
 
 def analyze(params: Dict, latents: Tensor, pad_mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
@@ -69,3 +74,37 @@ def synthesize(params: Dict, latents: Tensor, timbre: Tensor,
     x = snake_filtered(x, params["final_act"]["alpha"], params["final_act"]["beta"])
     x = conv1d(x, params["out"]["w"], params["out"]["b"], padding=3)
     return torch.tanh(x)
+
+
+def init_fvq(g: torch.Generator, dim: int = 256, codebook_dim: int = 8, codebook_size: int = 1024) -> Dict:
+    return {"in_proj": init_linear(g, codebook_dim, dim), "out_proj": init_linear(g, dim, codebook_dim),
+            "codebook": torch.randn((codebook_size, codebook_dim), generator=g)}
+
+
+def init_decoder_params(g: torch.Generator, in_channels: int = 256, upsample_initial_channel: int = 1024,
+                        up_ratios: Sequence[int] = (5, 5, 4, 2)) -> Dict:
+    """Random decoder parameters from ``g``: the JAX package's
+    ``init_decoder_params`` tree (normal, not truncated normal, fan-in
+    convs; the output conv scaled by 0.01 so that the tanh starts in its
+    linear region)."""
+    dim, ch = in_channels, upsample_initial_channel
+    timbre = init_timbre_params(g, dim)  # drawn first: FaCodec.random_init's values stay as they were
+    p: Dict = {
+        "quantizers": [[init_fvq(g, dim) for _ in range(n)] for n in GROUP_SIZES],
+        "timbre_encoder": timbre,
+        # gamma half of the bias 1, beta half 0
+        "timbre_linear": {"w": init_linear(g, 2 * dim, dim)["w"],
+                          "b": torch.cat([torch.ones(dim), torch.zeros(dim)])},
+        "stem": init_conv(g, ch, dim, 7),
+        "blocks": [],
+    }
+    for i, stride in enumerate(up_ratios):
+        c_in, c_out = ch // 2 ** i, ch // 2 ** (i + 1)
+        up = torch.randn((c_in, c_out, 2 * stride), generator=g) / np.sqrt(2 * c_in)
+        p["blocks"].append({"act": init_act(c_in), "up": {"w": up, "b": torch.zeros(c_out)},
+                            "res": [init_unit(g, c_out) for _ in range(3)]})
+    final = ch // 2 ** len(up_ratios)
+    p["final_act"] = init_act(final)
+    p["out"] = init_conv(g, 1, final, 7)
+    p["out"]["w"] = p["out"]["w"] * 0.01
+    return p

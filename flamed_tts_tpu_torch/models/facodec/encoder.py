@@ -12,6 +12,8 @@ from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
+import torch
 from torch import Tensor
 
 from flamed_tts_tpu_torch.ops.conv1d import conv1d
@@ -40,3 +42,37 @@ def encoder_forward(params: Dict, wav: Tensor, up_ratios: Sequence[int] = (2, 4,
         x = encoder_block(x, block, stride, fuse_blocks, prepared[i] if prepared else None)
     x = snake_filtered(x, params["final_act"]["alpha"], params["final_act"]["beta"])
     return conv1d(x, params["out"]["w"], params["out"]["b"], padding=1)
+
+
+# ----- random parameters (the converted checkpoints' structure) ----------
+
+
+def init_conv(g: torch.Generator, c_out: int, c_in: int, k: int) -> Dict:
+    """Fan-in-scaled normal weights (out, in, k), zero bias."""
+    w = torch.randn((c_out, c_in, k), generator=g) / np.sqrt(c_in * k)
+    return {"w": w, "b": torch.zeros(c_out)}
+
+
+def init_act(c: int) -> Dict:
+    return {"alpha": torch.zeros(c), "beta": torch.zeros(c)}
+
+
+def init_unit(g: torch.Generator, c: int) -> Dict:
+    return {"act1": init_act(c), "conv1": init_conv(g, c, c, 7), "act2": init_act(c),
+            "conv2": init_conv(g, c, c, 1)}
+
+
+def init_encoder_params(g: torch.Generator, ngf: int = 32, up_ratios: Sequence[int] = (2, 4, 5, 5),
+                        out_channels: int = 256) -> Dict:
+    """Random encoder parameters from ``g``: the JAX package's
+    ``init_encoder_params`` tree, with normal (not truncated normal)
+    fan-in-scaled convs."""
+    d = ngf
+    p: Dict = {"stem": init_conv(g, d, 1, 7), "blocks": []}
+    for stride in up_ratios:
+        d *= 2
+        p["blocks"].append({"res": [init_unit(g, d // 2) for _ in range(3)], "act": init_act(d // 2),
+                            "down": init_conv(g, d, d // 2, 2 * stride)})
+    p["final_act"] = init_act(d)
+    p["out"] = init_conv(g, out_channels, d, 3)
+    return p

@@ -72,3 +72,25 @@ def timbre_encoder_forward(params: Dict, x: Tensor, pad_mask: Optional[Tensor] =
         valid = (~pad_mask)[:, :, None].to(x.dtype)
         return (x * valid).sum(dim=1) / torch.clamp(valid.sum(dim=1), min=1.0)
     return x.mean(dim=1)
+
+
+def init_linear(g: torch.Generator, c_out: int, c_in: int) -> Dict:
+    return {"w": torch.randn((c_out, c_in), generator=g) * 0.02, "b": torch.zeros(c_out)}
+
+
+def init_timbre_params(g: torch.Generator, d_model: int = 256, n_layers: int = 4, d_ffn: int = 1024,
+                       conv_kernel: int = 5) -> Dict:
+    """Random timbre-encoder parameters from ``g`` (normal, std 0.02; unit
+    LayerNorms), the JAX package's ``init_timbre_params`` tree."""
+    def ln():
+        return {"g": torch.ones(d_model), "b": torch.zeros(d_model)}
+
+    layers = [{"ln1": ln(), "ln2": ln(),
+               "attn": {"in_proj_w": init_linear(g, 3 * d_model, d_model)["w"],
+                        "in_proj_b": torch.zeros(3 * d_model),
+                        "out_proj_w": init_linear(g, d_model, d_model)["w"],
+                        "out_proj_b": torch.zeros(d_model)},
+               "ffn1": {"w": torch.randn((d_ffn, d_model, conv_kernel), generator=g) * 0.02,
+                        "b": torch.zeros(d_ffn)},
+               "ffn2": init_linear(g, d_model, d_ffn)} for _ in range(n_layers)]
+    return {"layers": layers, "last_ln": ln()}

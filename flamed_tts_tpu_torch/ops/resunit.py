@@ -18,6 +18,11 @@ packed into the order of the mma B fragments (``pack_mma_weights``);
 ``prepare_unit`` packs both convs of a unit, so that a caller who keeps its
 parameters (``FaCodec``) lays them out once and not on every launch.
 
+Under grad the kernels run inside ``ResidualUnit`` / ``ResidualStack``,
+whose backward is the plain chain's VJP (``kernels.plain_vjp``); they read
+the live conv weights then (``prepared`` must be None), so the gradient
+reaches the weights the forward used.
+
 The io type is that of ``x`` (float32 or bfloat16) and the conv weights and
 biases must have it too.  Sums are float32; in bfloat16 a value is rounded
 where the kernels round it: after each snake, each conv sum before its bias
@@ -53,6 +58,8 @@ SM_SMEM_BYTES = 233472  # shared memory of one SM (228 KB); a resident block tak
 STACK_DILATIONS = (1, 3, 9)
 STACK_MAX_TILE = 256  # more rows per block would leave the card's 132 SMs short of blocks
 STACK_MIN_TILE = 64   # below this the halo rows (150 a block) cost more than they save
+UNIT_LEAVES = (("act1", "alpha"), ("act1", "beta"), ("conv1", "w"), ("conv1", "b"),
+               ("act2", "alpha"), ("act2", "beta"), ("conv2", "w"), ("conv2", "b"))
 
 
 def residual_unit_reference(x: torch.Tensor, p: Dict, dilation: int) -> torch.Tensor:
@@ -214,11 +221,9 @@ def _check_x(x: torch.Tensor, what: str) -> None:
     kernels.require(x, "x", aligned=True)
 
 
-def residual_unit_cuda(x: torch.Tensor, p: Dict, dilation: int, prepared: Optional[Dict] = None) -> torch.Tensor:
+def _unit_launch(x: torch.Tensor, p: Dict, dilation: int, prepared: Optional[Dict] = None) -> torch.Tensor:
     """One K2 launch at ``pick_tile``'s rows per block (the result has the
-    same bits at any tile that fits).  Refuses tensors that require grad
-    while grad is enabled: the kernel has no backward."""
-    kernels.refuse_grad("residual_unit", x, p, prepared)
+    same bits at any tile that fits)."""
     _check_x(x, "residual_unit")
     b, t, c = x.shape
     d = int(dilation)
@@ -235,11 +240,9 @@ def residual_unit_cuda(x: torch.Tensor, p: Dict, dilation: int, prepared: Option
     return out
 
 
-def residual_stack_cuda(x: torch.Tensor, units, dilations: Sequence[int] = STACK_DILATIONS,
-                        prepared: Optional[List[Dict]] = None) -> torch.Tensor:
-    """One K3 launch; raises where ``stack_tile`` admits no tile, and on
-    tensors that require grad while grad is enabled (no backward)."""
-    kernels.refuse_grad("residual_stack", x, units, prepared)
+def _stack_launch(x: torch.Tensor, units, dilations: Sequence[int] = STACK_DILATIONS,
+                  prepared: Optional[List[Dict]] = None) -> torch.Tensor:
+    """One K3 launch; raises where ``stack_tile`` admits no tile."""
     _check_x(x, "residual_stack")
     b, t, c = x.shape
     dil = tuple(int(d) for d in dilations)
@@ -259,6 +262,90 @@ def residual_stack_cuda(x: torch.Tensor, units, dilations: Sequence[int] = STACK
     kernels.check(err, "residual_stack")
     kernels.launches["residual_stack"] += 1
     return out
+
+
+def _leaves(p: Dict) -> List[torch.Tensor]:
+    """A unit's eight parameters in the order of UNIT_LEAVES."""
+    return [p[m][k] for m, k in UNIT_LEAVES]
+
+
+def _units(leaves) -> List[Dict]:
+    """The inverse of ``_leaves`` over one or more units."""
+    units: List[Dict] = []
+    for i in range(0, len(leaves), len(UNIT_LEAVES)):
+        p: Dict = {}
+        for (m, k), t in zip(UNIT_LEAVES, leaves[i:i + len(UNIT_LEAVES)]):
+            p.setdefault(m, {})[k] = t
+        units.append(p)
+    return units
+
+
+class ResidualUnit(torch.autograd.Function):
+    """Forward: one K2 launch on the live weights.  Backward: the plain
+    chain's VJP (``residual_unit_reference``) at the saved input, for x and
+    each of the unit's eight parameters that requires grad."""
+
+    @staticmethod
+    def forward(ctx, x, dilation, *leaves):
+        ctx.dilation = dilation
+        ctx.save_for_backward(x, *leaves)
+        return _unit_launch(x, _units(leaves)[0], dilation)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        d = ctx.dilation
+        needs = (ctx.needs_input_grad[0],) + ctx.needs_input_grad[2:]
+        grads = kernels.plain_vjp(lambda x, *leaves: residual_unit_reference(x, _units(leaves)[0], d),
+                                  ctx.saved_tensors, grad_out, needs)
+        return (grads[0], None) + grads[1:]
+
+
+class ResidualStack(torch.autograd.Function):
+    """Forward: one K3 launch on the live weights of three units at
+    dilations 1, 3, 9.  Backward: the plain chain's VJP
+    (``residual_stack_reference``) at the saved input."""
+
+    @staticmethod
+    def forward(ctx, x, *leaves):
+        ctx.save_for_backward(x, *leaves)
+        return _stack_launch(x, _units(leaves))
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return kernels.plain_vjp(lambda x, *leaves: residual_stack_reference(x, _units(leaves)),
+                                 ctx.saved_tensors, grad_out, ctx.needs_input_grad)
+
+
+def _refuse_prepared(prepared) -> None:
+    if prepared is not None and any(w is not None for w in
+                                    (prepared if isinstance(prepared, list) else [prepared])):
+        raise ValueError("prepared weights are a copy laid out once: under grad pass prepared=None, "
+                         "so that the kernel reads the weights the gradient reaches")
+
+
+def residual_unit_cuda(x: torch.Tensor, p: Dict, dilation: int, prepared: Optional[Dict] = None) -> torch.Tensor:
+    """One K2 launch.  Under grad, with a float32 tensor that requires grad,
+    the launch runs inside ``ResidualUnit`` on ``p``'s own weights, so the
+    result carries the plain chain's gradient, and ``prepared`` must be
+    None; a bfloat16 one is refused."""
+    leaves = _leaves(p)
+    if kernels.needs_grad(x, *leaves):
+        _refuse_prepared(prepared)
+        return ResidualUnit.apply(x, int(dilation), *leaves)
+    return _unit_launch(x, p, dilation, prepared)
+
+
+def residual_stack_cuda(x: torch.Tensor, units, dilations: Sequence[int] = STACK_DILATIONS,
+                        prepared: Optional[List[Dict]] = None) -> torch.Tensor:
+    """One K3 launch; raises where ``stack_tile`` admits no tile.  Under
+    grad as ``residual_unit_cuda``, through ``ResidualStack``."""
+    leaves = [t for p in units for t in _leaves(p)]
+    if kernels.needs_grad(x, *leaves):
+        _refuse_prepared(prepared)
+        if len(units) != 3 or tuple(int(d) for d in dilations) != STACK_DILATIONS:
+            raise ValueError(f"residual_stack kernel takes three units at dilations {STACK_DILATIONS}")
+        return ResidualStack.apply(x, *leaves)
+    return _stack_launch(x, units, dilations, prepared)
 
 
 def residual_unit(x: torch.Tensor, p: Dict, dilation: int, prepared: Optional[Dict] = None) -> torch.Tensor:

@@ -3,7 +3,9 @@
 plain version.
 
 ``snake_filtered`` runs the kernel for a CUDA tensor and the plain chain
-for a CPU tensor; there is no other switch.
+for a CPU tensor; there is no other switch.  Under grad the kernel runs
+inside ``SnakeFiltered``, whose backward is the plain chain's VJP
+(``kernels.plain_vjp``).
 """
 
 from __future__ import annotations
@@ -14,12 +16,8 @@ from flamed_tts_tpu_torch import kernels
 from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
 
 
-def snake_filtered_cuda(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torch.Tensor) -> torch.Tensor:
-    """x (B, T, C) float32 or bfloat16 on the card; log_alpha, log_beta
-    (C,), read as float32 (a bfloat16 pair is upcast first).  Refuses
-    tensors that require grad while grad is enabled: the kernel has no
-    backward."""
-    kernels.refuse_grad("snake_filtered", x, log_alpha, log_beta)
+def _launch(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torch.Tensor) -> torch.Tensor:
+    """One K1 launch."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
     b, t, c = x.shape
@@ -36,6 +34,31 @@ def snake_filtered_cuda(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torc
     kernels.check(err, "snake_filtered")
     kernels.launches["snake_filtered"] += 1
     return out
+
+
+class SnakeFiltered(torch.autograd.Function):
+    """Forward: one K1 launch.  Backward: the plain chain's VJP at the
+    saved input, for x, log_alpha and log_beta."""
+
+    @staticmethod
+    def forward(ctx, x, log_alpha, log_beta):
+        ctx.save_for_backward(x, log_alpha, log_beta)
+        return _launch(x, log_alpha, log_beta)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return kernels.plain_vjp(snake_filtered_reference, ctx.saved_tensors, grad_out,
+                                 ctx.needs_input_grad)
+
+
+def snake_filtered_cuda(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torch.Tensor) -> torch.Tensor:
+    """x (B, T, C) float32 or bfloat16 on the card; log_alpha, log_beta
+    (C,), read as float32 (a bfloat16 pair is upcast first).  Under grad,
+    with a float32 tensor that requires grad, the result carries the
+    plain chain's gradient (``SnakeFiltered``); a bfloat16 one is refused."""
+    if kernels.needs_grad(x, log_alpha, log_beta):
+        return SnakeFiltered.apply(x, log_alpha, log_beta)
+    return _launch(x, log_alpha, log_beta)
 
 
 def snake_filtered(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torch.Tensor) -> torch.Tensor:

@@ -276,10 +276,14 @@ def test_bf16_kernels_refuse_a_width_past_the_weight_stage(device, dtype):
 
 
 @pytest.mark.parametrize("kernel", ["snake_filtered", "residual_unit", "residual_stack"])
-def test_kernels_refuse_autograd_on_the_card(device, kernel):
-    """Under grad a CUDA tensor that requires grad is refused (the kernels
-    have no backward); under no_grad the same call launches."""
-    from flamed_tts_tpu_torch.ops.resunit import residual_stack_cuda, residual_unit_cuda
+def test_kernels_carry_autograd_on_the_card(device, kernel):
+    """Under grad a CUDA float32 tensor that requires grad gets a result
+    with a grad_fn, within tolerance of the plain chain, and its gradients
+    (input and every parameter) equal autograd through the plain chain;
+    under no_grad the same call launches without a Function."""
+    from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
+    from flamed_tts_tpu_torch.ops.resunit import (residual_stack_cuda, residual_stack_reference,
+                                                  residual_unit_cuda, residual_unit_reference)
     from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
 
     rng = np.random.RandomState(5)
@@ -288,13 +292,24 @@ def test_kernels_refuse_autograd_on_the_card(device, kernel):
          "act2": {"alpha": _rand(rng, c, scale=0.3), "beta": _rand(rng, c, scale=0.3)},
          "conv1": {"w": _rand(rng, c, c, 7, scale=0.05), "b": _rand(rng, c, scale=0.1)},
          "conv2": {"w": _rand(rng, c, c, 1, scale=0.05), "b": _rand(rng, c, scale=0.1)}}
-    p = {k: {n: v.to(device) for n, v in sub.items()} for k, sub in p.items()}
-    call = {"snake_filtered": lambda x: snake_filtered_cuda(x, p["act1"]["alpha"], p["act1"]["beta"]),
-            "residual_unit": lambda x: residual_unit_cuda(x, p, 3),
-            "residual_stack": lambda x: residual_stack_cuda(x, [p, p, p])}[kernel]
-    x = _rand(rng, 1, 300, c).to(device).requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        call(x)
+    p = {k: {n: v.to(device).requires_grad_() for n, v in sub.items()} for k, sub in p.items()}
+    leaves = [t for sub in p.values() for t in sub.values()]
+    kernel_call, plain_call = {
+        "snake_filtered": (lambda x: snake_filtered_cuda(x, p["act1"]["alpha"], p["act1"]["beta"]),
+                           lambda x: snake_filtered_reference(x, p["act1"]["alpha"], p["act1"]["beta"])),
+        "residual_unit": (lambda x: residual_unit_cuda(x, p, 2), lambda x: residual_unit_reference(x, p, 2)),
+        "residual_stack": (lambda x: residual_stack_cuda(x, [p, p, p]),
+                           lambda x: residual_stack_reference(x, [p, p, p]))}[kernel]
+    wrt = [p["act1"]["alpha"], p["act1"]["beta"]] if kernel == "snake_filtered" else leaves
+    x = _rand(rng, 2, 300, c).to(device).requires_grad_()
+    g = _rand(rng, 2, 300, c).to(device)
+    out, ref = kernel_call(x), plain_call(x)
+    assert out.grad_fn is not None
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    # the same plain VJP at the same input: only cuDNN's backward algorithms
+    # (split sums) part them, by a share of each leaf's scale
+    for a, b in zip(torch.autograd.grad(out, [x, *wrt], g), torch.autograd.grad(ref, [x, *wrt], g)):
+        torch.testing.assert_close(a, b, atol=1e-5 * float(b.abs().max()), rtol=0)
     with torch.no_grad():
-        out = call(x)
+        out = kernel_call(x)
     assert out.shape == x.shape and out.grad_fn is None and torch.isfinite(out).all()

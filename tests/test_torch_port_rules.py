@@ -141,43 +141,67 @@ def test_no_environment_variable_decides_a_route():
 
 
 @pytest.mark.parametrize("kernel", ["snake_filtered", "residual_unit", "residual_stack"])
-def test_kernel_wrappers_refuse_autograd(kernel):
-    """A wrapper writes its output through raw pointers, so a result would
-    have no grad_fn: under grad, an input or parameter that requires grad is
-    refused before any other check (so a CPU tensor reaches the raise)."""
-    from flamed_tts_tpu_torch.ops.resunit import residual_stack_cuda, residual_unit_cuda
-    from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
+def test_kernel_wrappers_carry_the_plain_chains_gradient(monkeypatch, kernel):
+    """Under grad a wrapper runs its kernel inside a torch.autograd.Function
+    whose backward is the plain chain's VJP.  On the CPU the launch is
+    stood in for by the plain version, so the Function's forward and
+    backward run here: the result has a grad_fn, and the gradients of the
+    input and every parameter equal autograd through the plain chain.  A
+    bfloat16 input under grad is refused, and so are prepared weights (a
+    copy the gradient would not reach)."""
+    from flamed_tts_tpu_torch.ops import resunit, snake
 
+    monkeypatch.setattr(snake, "_launch", snake.snake_filtered_reference)
+    monkeypatch.setattr(resunit, "_unit_launch",
+                        lambda x, p, d, prepared=None: resunit.residual_unit_reference(x, p, d))
+    monkeypatch.setattr(resunit, "_stack_launch",
+                        lambda x, units, dilations=(1, 3, 9), prepared=None:
+                        resunit.residual_stack_reference(x, units, dilations))
     c = 32
+    rng = np.random.RandomState(2)
+
+    def rnd(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).requires_grad_()
 
     def unit():
-        return {"act1": {"alpha": torch.zeros(c), "beta": torch.zeros(c)},
-                "act2": {"alpha": torch.zeros(c), "beta": torch.zeros(c)},
-                "conv1": {"w": torch.zeros(c, c, 7), "b": torch.zeros(c)},
-                "conv2": {"w": torch.zeros(c, c, 1), "b": torch.zeros(c)}}
+        return {"act1": {"alpha": rnd(c, scale=0.3), "beta": rnd(c, scale=0.3)},
+                "act2": {"alpha": rnd(c, scale=0.3), "beta": rnd(c, scale=0.3)},
+                "conv1": {"w": rnd(c, c, 7, scale=0.05), "b": rnd(c, scale=0.1)},
+                "conv2": {"w": rnd(c, c, 1, scale=0.05), "b": rnd(c, scale=0.1)}}
 
-    x = torch.zeros(1, 8, c)
-    calls = {"snake_filtered": lambda x, p: snake_filtered_cuda(x, p["act1"]["alpha"], p["act1"]["beta"]),
-             "residual_unit": lambda x, p: residual_unit_cuda(x, p, 1),
-             "residual_stack": lambda x, p: residual_stack_cuda(x, [unit(), p, unit()])}
-    call = calls[kernel]
-    with pytest.raises(RuntimeError, match="no backward"):
-        call(x.clone().requires_grad_(), unit())
-    p = unit()
-    p["act1"]["alpha"].requires_grad_()  # a parameter alone
-    with pytest.raises(RuntimeError, match="no backward"):
-        call(x, p)
+    units = [unit(), unit(), unit()]
+    calls = {"snake_filtered": (lambda x, route: route(x, units[0]["act1"]["alpha"], units[0]["act1"]["beta"]),
+                                snake.snake_filtered_cuda, resunit.snake_filtered_reference),
+             "residual_unit": (lambda x, route: route(x, units[0], 2),
+                               resunit.residual_unit_cuda, resunit.residual_unit_reference),
+             "residual_stack": (lambda x, route: route(x, units),
+                                resunit.residual_stack_cuda, resunit.residual_stack_reference)}
+    call, wrapper, plain = calls[kernel]
+    params = ([units[0]["act1"]["alpha"], units[0]["act1"]["beta"]] if kernel == "snake_filtered"
+              else [t for p in units[: 1 if kernel == "residual_unit" else 3]
+                    for sub in p.values() for t in sub.values()])
+    x = rnd(2, 40, c)
+    g = torch.from_numpy(rng.randn(2, 40, c).astype(np.float32))
+    out = call(x, wrapper)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__.startswith(
+        {"snake_filtered": "SnakeFiltered", "residual_unit": "ResidualUnit",
+         "residual_stack": "ResidualStack"}[kernel])
+    got = torch.autograd.grad(out, [x, *params], g)
+    ref = torch.autograd.grad(call(x, plain), [x, *params], g)
+    assert len(got) == len(params) + 1
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=0.0, rtol=0.0)
+    with pytest.raises(RuntimeError, match="float32 only"):
+        call(x.detach().bfloat16().requires_grad_(), wrapper)
     if kernel != "snake_filtered":
-        p = unit()
-        p["conv1"]["w"].requires_grad_()
-        with pytest.raises(RuntimeError, match="no backward"):
-            call(x, p)
-    # under no_grad, or with nothing that requires grad, the next check
-    # (a CPU tensor) is what refuses
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
-        call(x.clone().requires_grad_(), p)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        call(x, unit())
+        prepared = [{"w1": None, "w2": None}] * 3
+        route = ((lambda x, p, d: resunit.residual_unit_cuda(x, p, d, prepared[0]))
+                 if kernel == "residual_unit" else
+                 (lambda x, u: resunit.residual_stack_cuda(x, u, prepared=prepared)))
+        with pytest.raises(ValueError, match="prepared"):
+            call(x, route)
+    with torch.no_grad():  # no grad: the launch itself, no Function
+        assert call(x, wrapper).grad_fn is None
 
 
 def test_cpu_run_launches_no_kernel():
