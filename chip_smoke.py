@@ -82,8 +82,27 @@ Phases (any failure exits non-zero before the last line):
      and the redecoder with random weights, a 3 s source and target each;
      then K1 and K2 timed as in phase 5 at the trainer's shapes, with the
      backward of each Function beside autograd's through the plain chain.
-     Last: the kernels line (paths A, B, precompute, validation, bench and
-     codec_train), the card's name and power limit, the device line.
+  9. evaluation: fabricate 48 utterances of up to 8 s by 8 speakers
+     (``fabricate_corpus``, phone-dependent formant audio); ``python -m
+     flamed_tts_tpu_torch.dump_decoded`` on the card (codec_r5, fp32: K1 10
+     and K2 24 a round trip, held), a short utterance's round trip against
+     the CPU's (codes equal, the wav to phase 4's tolerance); ``train_asr``
+     at the JAX tool's defaults (256 x 8, batch 16, lr 2e-3, 30 epochs) on
+     the clean and decoded audio: median step ms, frames/s, peak memory,
+     the loss falling, the valid frame accuracy beside the silence share,
+     and one step on the card against the CPU's; the committed recognizer
+     on the card against the CPU (logits, transcripts), its ms per audio
+     second beside the host's Viterbi decode; ``evaluate`` (codec_r5, the
+     committed recognizer; K1 10 and K2 24 an entry, held);
+     ``eval_discrimination`` stage 1 (launches held; a crop's timbre and
+     ASR embedding against the CPU's) and stage 2 with random full-width
+     weights as .npz (finite rows); then K1 and K2 held against their plain
+     versions and timed as in phase 5 at the longest utterance's round
+     trip.  The tools run under PyTorch's own TF32 switches, the
+     comparisons with TF32 off.
+     Last: the kernels line (paths A, B, precompute, validation, bench,
+     codec_train and eval), the card's name and power limit, the device
+     line.
 """
 
 from __future__ import annotations
@@ -170,6 +189,10 @@ CODEC_BATCH, CODEC_CROP, CODEC_STEPS = 8, 160, 40
 CODEC_UP_ENC, CODEC_UP_DEC = (2, 4, 5, 5), (5, 5, 4, 2)
 REDECODER_WIDTH = 1024
 TRAIN_CODEC_WEIGHTS = {"mel": 1.0, "wav": 10.0, "commit": 1.0, "phone": 2.0, "spk": 1.0, "latreg": 1.0}
+# phase 9: the evaluation tools on a fabricated corpus of eight voices, cut
+# from the JAX tools' 300 utterances of up to 15 s by 24 speakers
+EVAL_UTTERANCES, EVAL_SPEAKERS, EVAL_DUR_MAX = 48, 8, 8.0
+EVAL_ENTRIES = 8  # lines of the evaluate run's metadata
 # a Function's gradients against autograd through the plain chain: both are
 # the plain chain's VJP at the same input, so only cuDNN's choice of
 # backward algorithm between two calls may part them
@@ -1115,6 +1138,268 @@ def codec_train_phase(kernels, compare, dev) -> dict:
     return {"codec_train": {"calls": calls, "launches": step_launches, "backward": backward}}
 
 
+def eval_phase(kernels, codec, dev) -> dict:
+    """Phase 9, evaluation (see the module docstring).  ``codec`` is path
+    A's fp32 codec.  The tools run under PyTorch's own TF32 switches, every
+    comparison with TF32 off.  Returns, for the kernels line, {"eval":
+    {"calls", "launches"}}: the kernel calls of the longest utterance's round
+    trip and the launches of one round trip in the dump_decoded run."""
+    import tempfile
+
+    from flamed_tts_tpu_torch import (asr, dump_decoded, eval_discrimination, evaluate,
+                                      fabricate_corpus, train_asr)
+    from flamed_tts_tpu_torch.config import load_default_config
+    from flamed_tts_tpu_torch.convert import params_to_jax
+    from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
+    from flamed_tts_tpu_torch.models.flamed import Flamed
+    from flamed_tts_tpu_torch.runtime.pytree_io import flatten_pytree
+    from flamed_tts_tpu_torch.train_codec import FiniteAdam, cosine_schedule, leaves, tree_map
+    from flamed_tts_tpu_torch.utils.audio import load_wav
+
+    t_phase = time.perf_counter()
+    gib = 2.0 ** 30
+    wav_tol = 1e-5 + 1.0 / 32767  # phase 4's
+
+    def elapsed(step):
+        log(f"[phase 9] {step} done at {time.perf_counter() - t_phase:.1f} s")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        # 9.1 the corpus
+        corpus, decoded = os.path.join(tmp, "corpus"), os.path.join(tmp, "decoded")
+        t0 = time.perf_counter()
+        durations = fabricate_corpus.fabricate(corpus, n=EVAL_UTTERANCES, seed=0, n_speakers=EVAL_SPEAKERS,
+                                               dur_max=EVAL_DUR_MAX)
+        items = eval_discrimination.read_corpus(corpus)
+        by_spk = {}
+        for wav_path, text, spk in items:
+            by_spk.setdefault(spk, []).append((wav_path, text))
+        log(f"[phase 9] [fabricate] {len(durations)} utterances by {len(by_spk)} speakers "
+            f"({sorted(len(v) for v in by_spk.values())} each), {sum(durations):.1f} s of audio "
+            f"({min(durations):.2f}-{max(durations):.2f} s) in {time.perf_counter() - t0:.1f} s on the host")
+        elapsed("9.1 fabricate")
+
+        # 9.2 dump_decoded on the card (codec_r5, fp32), as a user runs it
+        kernels.reset_launches()
+        with tf32(*DEFAULT_TF32):
+            setting = tf32_label()
+            stats = dump_decoded.main(["--corpus", corpus, "--codec-dir", CODEC_DIR, "--out-dir", decoded])
+            torch.cuda.synchronize()
+        dump_launches = dict(kernels.launches)
+        n = EVAL_UTTERANCES
+        per_utt = {k: v / n for k, v in dump_launches.items()}
+        log(f"[phase 9] [dump_decoded] {setting}; {stats['decoded']} round trips, {stats['audio_s']:.1f} s of "
+            f"audio in {stats['seconds']:.2f} s: {stats['decoded'] / stats['seconds']:.2f} utterances/s, "
+            f"{stats['audio_s'] / stats['seconds']:.1f} audio-s/s (host clock, wav files read and "
+            f"written); launches {json.dumps(dump_launches)}, per utterance {json.dumps(per_utt)}")
+        if stats["decoded"] != n or per_utt != {"snake_filtered": 10, "residual_unit": 24, "residual_stack": 0}:
+            raise AssertionError(f"dump_decoded: {stats}, launches {dump_launches}: expected K1 10, K2 24 a "
+                                 "round trip")
+        # one short utterance's round trip, card (TF32 off) against the CPU
+        cpu_codec = FaCodec.from_pretrained(CODEC_DIR, device="cpu")
+        shortest = int(np.argmin(durations))
+        wav = load_wav(os.path.join(corpus, f"utt{shortest:05d}.wav"))[:32000]
+        kernels.reset_launches()
+        rt_g = codec.round_trip(wav)
+        torch.cuda.synchronize()
+        rt_launches = dict(kernels.launches)
+        rt_c = cpu_codec.round_trip(wav)
+        codes_g, codes_c = codec.encode_prompt(wav)[0], cpu_codec.encode_prompt(wav)[0]
+        err = float(np.abs(rt_g - rt_c).max()) if rt_g.shape == rt_c.shape else math.inf
+        n_diff = int((codes_g != codes_c).sum()) if codes_g.shape == codes_c.shape else -1
+        log(f"[phase 9] [round trip card vs CPU] utterance {shortest} cut to {len(wav)} samples "
+            f"({tf32_label()}; launches {json.dumps(rt_launches)}): {n_diff} of {codes_c.size} RVQ codes "
+            f"differ; wav max abs diff {err:.3e} (tol {wav_tol:.3e}, phase 4's)")
+        if n_diff != 0 or not err <= wav_tol or rt_launches != {"snake_filtered": 10, "residual_unit": 24,
+                                                                 "residual_stack": 0}:
+            raise AssertionError("the card's round trip disagrees with the CPU's")
+        elapsed("9.2 dump_decoded")
+
+        # 9.3 train_asr at the JAX tool's defaults on the clean and decoded audio
+        asr_out = os.path.join(tmp, "asr.npz")
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with tf32(*DEFAULT_TF32):
+            setting = tf32_label()
+            res = train_asr.main(["--corpus", corpus, "--out", asr_out, "--train-on", "decoded",
+                                  "--decoded-cache", decoded])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        step_ms = 1e3 * float(np.median(res["step_s"]))
+        frames_s = float(np.median(res["step_frames"])) / float(np.median(res["step_s"]))
+        log(f"[phase 9] [train_asr] {setting}; {len(res['step_s'])} steps of batch 16 x 512 frames "
+            f"(256 x 8, 30 epochs) in {wall:.1f} s with the featurization and the closing WER; median step "
+            f"{step_ms:.2f} ms (host clock, each ending in the optimizer's host read), {frames_s:.0f} "
+            f"labelled frames/s; peak memory {torch.cuda.max_memory_allocated() / gib:.2f} GiB; launches "
+            f"{json.dumps(dict(kernels.launches))}")
+        log(f"[phase 9] [train_asr] epoch loss {[round(v, 4) for v in res['epoch_loss'][:3]]} ... "
+            f"{[round(v, 4) for v in res['epoch_loss'][-3:]]}; valid frame accuracy "
+            f"{[(e, round(a, 4)) for e, a in res['valid_acc']]} beside a silence-class share of "
+            f"{res['valid_sil_share']:.4f} of the valid frames; speaker accuracy {res['spk_acc']}; "
+            f"free-decoding WER on the valid utterances {res['wer']:.4f}")
+        if (not np.isfinite(res["epoch_loss"]).all() or not res["epoch_loss"][-1] < res["epoch_loss"][0]
+                or any(kernels.launches.values())):
+            raise AssertionError("train_asr: the loss did not fall, or a hand kernel was launched")
+        # one step from the same parameters and batch on the card (TF32 off)
+        # and the CPU; eps 1e-4 in place of 1e-8, as in phase 6: Adam's first
+        # step scales a gradient element within rounding of 0 to +-lr
+        train_items = train_asr.load_corpus(corpus)[0][max(n // 10, 2):]
+        mels, labels, spks = train_asr.featurize(train_items[:16], device=dev)
+        params = asr.init_params(np.random.RandomState(0), n_speakers=len(by_spk))
+        out = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            p = tree_map(lambda t: t.requires_grad_(), asr.to_tensors(params, device))
+            opt = FiniteAdam(leaves(p), cosine_schedule(2e-3, 0, 5), eps=1e-4, weight_decay=1e-4)
+            loss = train_asr.train_step(p, opt, *(torch.as_tensor(a[:16], device=device)
+                                                   for a in (mels, labels, spks)))
+            out[where] = (float(loss), asr.to_numpy(p))
+        (lg, pg), (lc, pc) = out["card"], out["cpu"]
+        worst, moved = 0.0, 0.0
+        for a, b, start in zip(leaves(pg), leaves(pc), leaves(params)):
+            worst = max(worst, float((np.abs(a - b) - (1e-5 + 1e-4 * np.abs(b))).max()))
+            moved = max(moved, float(np.abs(b - start).max()))
+        log(f"[phase 9] [train_asr card vs CPU] one step, batch 16 x 512 frames ({tf32_label()}): loss "
+            f"{lg:.6f} vs {lc:.6f} (abs diff {abs(lg - lc):.3e}, tol 1e-4); parameters: worst excess over "
+            f"1e-5 abs + 1e-4 rel {worst:.3e} (<= 0 passes), largest move {moved:.3e}")
+        if not (abs(lg - lc) <= 1e-4 and worst <= 0.0 and moved > 1e-4):
+            raise AssertionError("an ASR training step on the card disagrees with the same on the CPU")
+        # where a warm step's time goes: five steps under torch.profiler
+        p = tree_map(lambda t: t.requires_grad_(), asr.to_tensors(res["params"], dev))
+        opt = train_asr.make_optimizer(p, 2e-3, 150)
+        batch = [torch.as_tensor(a[:16], device=dev) for a in (mels, labels, spks)]
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with tf32(*DEFAULT_TF32):
+            for _ in range(3):
+                train_asr.train_step(p, opt, *batch)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                for _ in range(5):
+                    train_asr.train_step(p, opt, *batch)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / 5
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in events) / 1e3 / 5
+        log(f"[phase 9] [train_asr breakdown] a profiled step {wall:.2f} ms: device busy {busy:.2f} ms "
+            f"({100 * busy / wall:.1f} %), {sum(e.count for e in events) / 5:.0f} device kernels and copies")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"[phase 9] [train_asr breakdown]   {e.self_device_time_total / 5e3:8.3f} ms  "
+                f"x{e.count // 5:<5d} {e.key[:90]}")
+        elapsed("9.3 train_asr")
+
+        # 9.4 the committed recognizer, card (TF32 off) against the CPU
+        rec, rec_cpu = asr.PhonemeRecognizer(device=dev), asr.PhonemeRecognizer(device="cpu")
+        dev_ms, host_ms, secs = [], [], []
+        for u in range(3):
+            wav = load_wav(items[u][0])
+            lg, lc = rec.frame_logits(wav), rec_cpu.frame_logits(wav)
+            excess = float((np.abs(lg - lc) - 2e-4 * (1 + np.abs(lc))).max())
+            same = rec.transcribe(wav) == rec_cpu.transcribe(wav)
+            log(f"[phase 9] [recognizer card vs CPU] utterance {u} ({len(wav) / 16000:.2f} s, {lc.shape[0]} "
+                f"frames): logits max abs diff {float(np.abs(lg - lc).max()):.3e} (tol 2e-4 abs + rel), "
+                f"phones and words {'equal' if same else 'DIFFER'}")
+            if excess > 0 or not same:
+                raise AssertionError("the recognizer on the card disagrees with the CPU")
+            dev_ms.append(time_ms(lambda: asr.forward(rec.tensors, rec.mel(wav)), 10))
+            t0 = time.perf_counter()
+            rec.decode_words(lg)
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            secs.append(len(wav) / 16000)
+        log(f"[phase 9] [recognizer] log-mel + trunk on the card {sum(dev_ms) / sum(secs):.3f} ms per second "
+            f"of audio (CUDA events over 10 back-to-back calls, host launch cost included); Viterbi word "
+            f"decode on the host {sum(host_ms) / sum(secs):.1f} ms per second of audio")
+        elapsed("9.4 recognizer")
+
+        # 9.5 evaluate: the round trips as the synthesized wavs, another
+        # utterance of the speaker as the prompt, the clean wav as the reference
+        meta, name = os.path.join(tmp, "meta.txt"), os.path.basename  # a round trip has its wav's name
+        entries = []
+        for spk in sorted(by_spk):
+            lst = by_spk[spk]
+            entries += [f"{name(lst[i][0])}|{name(lst[i + 1][0])}|{lst[i][1]}" for i in range(2)]
+        with open(meta, "w", encoding="utf-8") as f:
+            f.write("\n".join(entries[:EVAL_ENTRIES]) + "\n")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with tf32(*DEFAULT_TF32), contextlib.redirect_stdout(sys.stderr):
+            setting = tf32_label()
+            report = evaluate.main(["--synth-dir", decoded, "--metadata-file", meta, "--prompt-dir", corpus,
+                                    "--ref-dir", corpus, "--codec-dir", CODEC_DIR, "--asr-ckpt", "default"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_entry = {k: v / EVAL_ENTRIES for k, v in kernels.launches.items()}
+        log(f"[phase 9] [evaluate] {json.dumps(report)}")
+        log(f"[phase 9] [evaluate] {setting}; {EVAL_ENTRIES} entries in "
+            f"{wall:.2f} s ({wall / EVAL_ENTRIES:.2f} s an entry with the codec's, the recognizer's and "
+            f"the frontend's loading); launches per entry {json.dumps(per_entry)}")
+        finite = all(report[k] is not None and np.isfinite(report[k]) for k in report)
+        if (report["n_evaluated"] != EVAL_ENTRIES or not finite
+                or per_entry != {"snake_filtered": 10, "residual_unit": 24, "residual_stack": 0}):
+            raise AssertionError("evaluate: missing entries, a non-finite metric, or launches other than "
+                                 "two encode_prompt calls an entry")
+        elapsed("9.5 evaluate")
+
+        # 9.6 eval_discrimination stage 1: codec_r5 and the committed recognizer
+        kernels.reset_launches()
+        with tf32(*DEFAULT_TF32), contextlib.redirect_stdout(sys.stderr):
+            disc = eval_discrimination.main(["--corpus", corpus, "--codec-dir", CODEC_DIR])
+            torch.cuda.synchronize()
+        n_wavs = sum(min(len(v), max(2, 48 // len(by_spk))) for v in by_spk.values())
+        s1 = disc["stage1"]
+        log(f"[phase 9] [stage 1] " + "; ".join(
+            f"{k} same {s1[k]['same_mean']} diff {s1[k]['diff_mean']} margin {s1[k]['margin']:+.4f} rank_acc "
+            f"{s1[k]['rank_acc']}" for k in ("codec_timbre", "melstats", "asr_spk"))
+            + f" ({s1['codec_timbre']['n_same_pairs']} / {s1['codec_timbre']['n_diff_pairs']} pairs); "
+            f"launches {json.dumps(kernels.launches)} for {n_wavs} 3 s crops")
+        if (set(s1) != {"codec_timbre", "melstats", "asr_spk", "n_speakers"}
+                or kernels.launches != {"snake_filtered": 5 * n_wavs, "residual_unit": 12 * n_wavs,
+                                        "residual_stack": 0}):
+            raise AssertionError("stage 1: an embedder is missing, or launches other than one "
+                                 "encode_prompt a crop")
+        wav = eval_discrimination.trim_to_speech(load_wav(items[0][0]))
+        t_err = float(np.abs(codec.encode_prompt(wav)[1] - cpu_codec.encode_prompt(wav)[1]).max())
+        a_err = float(np.abs(rec.speaker_embedding(wav) - rec_cpu.speaker_embedding(wav)).max())
+        log(f"[phase 9] [stage 1 card vs CPU] a 3 s crop ({tf32_label()}): codec timbre max abs diff "
+            f"{t_err:.3e}, ASR speaker embedding {a_err:.3e} (tol 1e-4)")
+        if not (t_err <= 1e-4 and a_err <= 1e-4):
+            raise AssertionError("a stage-1 embedding on the card disagrees with the CPU's")
+        elapsed("9.6 stage 1")
+
+        # 9.7 stage 2 with random full-width prior/prob weights (seed 0) as .npz
+        model = Flamed(load_default_config(), device="cpu")
+        ckpt = os.path.join(tmp, "flamed.npz")
+        np.savez(ckpt, **flatten_pytree({"prior": params_to_jax(model.prior.state_dict()),
+                                         "prob": params_to_jax(model.prob.state_dict())}))
+        del model
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out, err = sys.stdout, sys.stderr  # the items' lines into the log, the JSON line out of it
+        with tf32(*DEFAULT_TF32), contextlib.redirect_stderr(out), contextlib.redirect_stdout(err):
+            disc = eval_discrimination.main(["--corpus", corpus, "--codec-dir", CODEC_DIR, "--ckpt", ckpt,
+                                             "--cfg", os.path.join(ROOT, "configs"), "--n-utts", "16",
+                                             "--nsteps", "32", "--n-synth", "4"])
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s2 = disc["stage2"]
+        keys = ("dur_s", "margin_codec", "margin_mel", "margin_asr", "wer")
+        finite = len(s2["items"]) == 4 and all(np.isfinite(r[k]) for r in s2["items"] for k in keys)
+        log(f"[phase 9] [stage 2] random full-width weights, nfe 32: "
+            f"{json.dumps({k: v for k, v in s2.items() if k != 'items'})}; rows finite {finite}; "
+            f"{wall:.1f} s with stage 1 over 16 crops and the model's loading; launches "
+            f"{json.dumps(kernels.launches)} (each item: the prompt's encoder and the decoder in the "
+            f"sample, three encode_prompt calls in the scoring)")
+        if not finite:
+            raise AssertionError("stage 2: a row is missing or not finite")
+        elapsed("9.7 stage 2")
+
+        # the kernels' shapes: the longest utterance's round trip (the
+        # encoder over its padded seconds, the decoder over their frames)
+        padded = len(codec.pad_prompt_wav(np.zeros(int(round(max(durations) * 16000)), np.float32))[0])
+        calls = encoder_calls(codec, padded) + decoder_calls(codec, padded // codec.hop)
+    return {"eval": {"calls": calls, "launches": {k: int(v) for k, v in per_utt.items()}}}
+
+
 def train_step_breakdown(state, on_card, batch) -> None:
     """Where a warm training step's time goes: forward, backward and the
     AdamW update timed apart on the host clock (each ends in a
@@ -1601,6 +1886,12 @@ def main() -> int:
     time_path("codec_train", runs["codec_train"]["calls"], torch.float32)
     log(f"[phase 8] done in {time.perf_counter() - t8:.1f} s (the timing of its shapes included)")
 
+    # 9. evaluation; then K1 and K2 at the longest utterance's round trip
+    t9 = time.perf_counter()
+    runs.update(eval_phase(kernels, codec, dev))
+    time_path("eval", runs["eval"]["calls"], torch.float32)
+    log(f"[phase 9] done in {time.perf_counter() - t9:.1f} s (the timing of its shapes included)")
+
     notes = {"A": "one utterance's launches on path A", "B": "one utterance's launches on path B",
              "precompute": "one 17 s utterance's analysis in the precompute step (the encoder at "
                            "272000 samples)",
@@ -1614,7 +1905,12 @@ def main() -> int:
                             "flamed_tts_tpu_torch.train_codec (fp32, batch 8 crops of 160 frames: the "
                             "encoder over 32000 samples, the synthesis over 160 frames; backward_ms is "
                             "the Function's backward, the plain chain recomputed and its VJP, beside "
-                            "plain_backward_ms, autograd's backward through the plain chain)"}
+                            "plain_backward_ms, autograd's backward through the plain chain)",
+             "eval": "one entry of the evaluation tools: a round trip of python -m "
+                     "flamed_tts_tpu_torch.dump_decoded (codec_r5, fp32; launches per utterance), at "
+                     "the shapes of the longest utterance's (the encoder over its 8 s bucket, the "
+                     "decoder over the bucket's frames); an evaluate entry launches the same counts "
+                     "(two encode_prompt calls)"}
     entries = []
     for (name, dtype_name, path), shapes in per.items():
         rows = list(shapes.values())

@@ -200,33 +200,41 @@ def loss_fn(p: Dict, wav: torch.Tensor, lab: torch.Tensor, spk: torch.Tensor,
     return total, {k: v.detach() for k, v in metrics.items()}
 
 
-def warmup_cosine_decay(lr: float, steps: int):
-    """optax.warmup_cosine_decay_schedule(0, lr, max(min(300, steps // 10),
-    1), steps, end_value=0.05 lr): count -> learning rate."""
-    warmup = max(min(300, steps // 10), 1)
+def cosine_schedule(peak: float, warmup: int, steps: int, end_value: float = 0.0):
+    """optax.warmup_cosine_decay_schedule(0, peak, warmup, steps,
+    end_value): count -> learning rate."""
     decay = steps - warmup
+    alpha = 0.0 if peak == 0.0 else end_value / peak
 
     def schedule(count: int) -> float:
         if count < warmup:
-            return -lr * (1.0 - count / warmup) + lr
+            return -peak * (1.0 - count / warmup) + peak
         c = min(count - warmup, decay)
-        return lr * (0.95 * 0.5 * (1.0 + math.cos(math.pi * c / decay)) + 0.05)
+        return peak * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / decay)) + alpha)
 
     return schedule
 
 
+def warmup_cosine_decay(lr: float, steps: int):
+    """The codec trainer's schedule: warmup max(min(300, steps // 10), 1),
+    then a cosine decay to 0.05 lr at ``steps``."""
+    return cosine_schedule(lr, max(min(300, steps // 10), 1), steps, 0.05 * lr)
+
+
 class FiniteAdam:
     """``optax.apply_if_finite(chain(clip_by_global_norm(max_norm),
-    adam(schedule)), max_consecutive_errors=inf)`` over a list of tensors,
-    updated in place: a step whose gradients hold a non-finite value
-    changes nothing (parameters, moments, counts) and adds one to
-    ``notfinite_count`` (reset by the next finite step).  The clip is
-    optax's: g * max_norm / ||g|| where ||g|| >= max_norm, no epsilon."""
+    adamw(schedule, weight_decay=weight_decay)), max_consecutive_errors=inf)``
+    over a list of tensors (``adam`` at weight_decay 0), updated in place: a
+    step whose gradients hold a non-finite value changes nothing
+    (parameters, moments, counts) and adds one to ``notfinite_count`` (reset
+    by the next finite step).  The clip is optax's: g * max_norm / ||g||
+    where ||g|| >= max_norm, no epsilon; the decay is optax's, lr * wd * p
+    on every parameter."""
 
     def __init__(self, params: List[torch.Tensor], schedule, max_norm: float = 1.0,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0):
         self.params, self.schedule, self.max_norm = params, schedule, max_norm
-        self.b1, self.b2, self.eps = b1, b2, eps
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
         self.count = 0  # applied updates
@@ -256,6 +264,8 @@ class FiniteAdam:
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(self.mu, c1)
         torch._foreach_div_(upd, denom)
+        if self.weight_decay:
+            torch._foreach_add_(upd, self.params, alpha=self.weight_decay)
         torch._foreach_add_(self.params, upd, alpha=-lr)
         return True
 

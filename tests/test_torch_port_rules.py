@@ -67,6 +67,36 @@ def test_entry_points_refuse_to_run_without_a_card():
         FaCodec.random_init(torch.Generator().manual_seed(0))
 
 
+ENTRY_POINT_ARGS = {
+    "evaluate": ["--synth-dir", "s", "--metadata-file", "m.txt", "--prompt-dir", "p", "--codec-dir", "random"],
+    "dump_decoded": ["--corpus", "c", "--codec-dir", "random", "--out-dir", "o"],
+    "train_asr": ["--corpus", "c", "--out", "o.npz"],
+    "eval_discrimination": ["--corpus", "c"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINT_ARGS))
+def test_evaluation_entry_points_refuse_to_run_without_a_card(name, tmp_path):
+    """Each evaluation entry point asks for the card before it reads a
+    file, and the recognizer does too, unless given the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    import importlib
+
+    from flamed_tts_tpu_torch.asr import PhonemeRecognizer
+
+    main = importlib.import_module(f"flamed_tts_tpu_torch.{name}").main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main([a if a.startswith("--") or a == "random" else str(tmp_path / a)
+              for a in ENTRY_POINT_ARGS[name]])
+    with pytest.raises(FileNotFoundError):  # past the device check, to the missing input
+        main([a if a.startswith("--") or a == "random" else str(tmp_path / a)
+              for a in ENTRY_POINT_ARGS[name]] + ["--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PhonemeRecognizer()
+    assert PhonemeRecognizer(device="cpu").device.type == "cpu"
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     from flamed_tts_tpu_torch.ops.resunit import residual_stack_cuda, residual_unit_cuda
     from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda

@@ -8,6 +8,8 @@ import sys
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 from flamed_tts_tpu_torch.config import load_default_config
 from flamed_tts_tpu_torch.convert import params_from_jax
@@ -69,3 +71,35 @@ def summaries_equal(exp_dir, capsys, monkeypatch, every=2):
     out = capsys.readouterr()
     assert (rc, out.out, out.err) == (rc_ref, ref.out, ref.err)
     return rc, out.out
+
+
+def narrow_codec_dir(out_dir, seed=0):
+    """A narrow random codec (encoder ngf 4, decoder from 64 channels; the
+    256-wide latents and timbre stay) saved as the two .npz files that
+    both packages' FaCodec.from_pretrained read; returns (encoder tree,
+    decoder tree) as numpy."""
+    from flamed_tts_tpu_torch.convert import params_to_jax
+    from flamed_tts_tpu_torch.models.facodec.decoder import init_decoder_params
+    from flamed_tts_tpu_torch.models.facodec.encoder import init_encoder_params
+    from flamed_tts_tpu_torch.runtime.pytree_io import save_pytree_npz
+
+    g = torch.Generator().manual_seed(seed)
+    enc = params_to_jax(init_encoder_params(g, ngf=4))
+    dec = params_to_jax(init_decoder_params(g, upsample_initial_channel=64))
+    codec_cfg = load_default_config()["codec_cfg"]
+    save_pytree_npz(os.path.join(out_dir, codec_cfg["encoder"]["ckpt_filename"]), enc)
+    save_pytree_npz(os.path.join(out_dir, codec_cfg["decoder"]["ckpt_filename"]), dec)
+    return enc, dec
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module's torch ops on one CPU thread, then restore the
+    count.  The evaluation tests run many small ops, which lose more to
+    thread start-up (and, under several test workers on one host, to
+    threads waiting on each other) than they gain from a pool; a test
+    module imports this fixture by name to take it."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
