@@ -11,7 +11,10 @@ Phases (any failure exits non-zero before the last line):
      K3 also lengths that leave the last 16-row mma tile ragged); hold the
      fused stack (K3) bit for bit against three single-unit (K2) launches;
      print the fp32 K2's error against a float64 plain version beside the
-     fp32 plain version's own, at one main-path shape per width;
+     fp32 plain version's own, at one main-path shape per width; hold K2 at
+     the FaCodec redecoder's shapes at its reference width for a 3 s source
+     ((1200, 640), (6000, 320), (24000, 160), (48000, 80); d = 1, 3, 9; fp32
+     and bf16), with the same bits from another tile;
   3. drive the two main paths at full width (random prior/prob weights from
      seed 0, the trained codec in artifacts/codec_r5, a 3 s prompt, 64 + 64
      Euler steps), each with every kernel's launch count set to 0 just
@@ -79,9 +82,11 @@ Phases (any failure exits non-zero before the last line):
      FaCodec.from_pretrained (its prompt codes on card and CPU); the
      training decode with all three GRL heads at the reference's head sizes
      (finite forward and backward, the GRL's sign); V2 voice conversion
-     and the redecoder with random weights, a 3 s source and target each;
-     then K1 and K2 timed as in phase 5 at the trainer's shapes, with the
-     backward of each Function beside autograd's through the plain chain.
+     and the redecoder at its reference width (1280: K2 at C = 640 ... 80,
+     launches held to its shapes) with random weights, a 3 s source and
+     target each; then K1 and K2 timed as in phase 5 at the trainer's and
+     the redecoder's shapes, with the backward of each Function beside
+     autograd's through the plain chain.
   9. evaluation: fabricate 48 utterances of up to 8 s by 8 speakers
      (``fabricate_corpus``, phone-dependent formant audio); ``python -m
      flamed_tts_tpu_torch.dump_decoded`` on the card (codec_r5, fp32: K1 10
@@ -100,9 +105,21 @@ Phases (any failure exits non-zero before the last line):
      versions and timed as in phase 5 at the longest utterance's round
      trip.  The tools run under PyTorch's own TF32 switches, the
      comparisons with TF32 off.
+  10. data and tensor parallelism, the native WAV codec and the G2P tools:
+     ``torchrun --standalone --nproc-per-node 1 -m flamed_tts_tpu_torch.train
+     --devices 1,1`` (NCCL) for 3 steps on phase 6's corpus, its first step
+     against the same step without a mesh; ``Flamed.sample_batch`` on a
+     1 x 1 mesh, a batch of 3 with prompt wavs (K1 and K2 launches held to
+     its shapes), against the same call without one; the native WAV codec
+     (``utils/native_audio.py``, built with g++) against scipy on phase 6's
+     files; ``train_g2p`` at the tool's widths and batch for G2P_EPOCHS of
+     its 120 epochs (step ms, held-out PER) and two updates on the card
+     against the CPU; ``expand_lexicon`` and ``lexicon_coverage`` against
+     the CPU's outputs; then K1 and K2 timed as in phase 5 at the mesh
+     call's shapes.
      Last: the kernels line (paths A, B, precompute, validation, bench,
-     codec_train and eval), the card's name and power limit, the device
-     line.
+     codec_train, redecoder, eval and mesh), the card's name and power
+     limit, the device line.
 """
 
 from __future__ import annotations
@@ -115,6 +132,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -187,12 +205,21 @@ TRAIN_STEPS = 30
 CODEC_UTTERANCES, CODEC_SPEAKERS = 24, 4
 CODEC_BATCH, CODEC_CROP, CODEC_STEPS = 8, 160, 40
 CODEC_UP_ENC, CODEC_UP_DEC = (2, 4, 5, 5), (5, 5, 4, 2)
-REDECODER_WIDTH = 1024
+REDECODER_WIDTH = 1280  # the redecoder's reference default: blocks of 640, 320, 160 and 80 channels
+# K2 at the redecoder's shapes for a 3 s source (240 frames, up 5x, 5x, 4x, 2x)
+REDECODER_K2_SHAPES = [(1200, 640), (6000, 320), (24000, 160), (48000, 80)]
 TRAIN_CODEC_WEIGHTS = {"mel": 1.0, "wav": 10.0, "commit": 1.0, "phone": 2.0, "spk": 1.0, "latreg": 1.0}
 # phase 9: the evaluation tools on a fabricated corpus of eight voices, cut
 # from the JAX tools' 300 utterances of up to 15 s by 24 speakers
 EVAL_UTTERANCES, EVAL_SPEAKERS, EVAL_DUR_MAX = 48, 8, 8.0
 EVAL_ENTRIES = 8  # lines of the evaluate run's metadata
+# phase 10: train_g2p cut from the tool's 120 epochs; the lexicon tools'
+# outputs as this repository's CPU run gives them (sha256 of the file
+# expand_lexicon writes, and of the JSON line lexicon_coverage prints on its
+# built-in sample)
+G2P_EPOCHS = 3
+EXPANDED_LEXICON_SHA256 = "84f1048cc5bc2bdeaee7d84b6a0adb7353ab8e1fa47a623629ab5097ebfdfecb"
+COVERAGE_LINE_SHA256 = "ac822448436c2553a81842a419b810d4c0f6628fa2be69cffd88e83337a663dd"
 # a Function's gradients against autograd through the plain chain: both are
 # the plain chain's VJP at the same input, so only cuDNN's choice of
 # backward algorithm between two calls may part them
@@ -344,6 +371,20 @@ def decoder_calls(codec, frames: int) -> list:
     return calls
 
 
+def synth_calls(synth: dict, frames: int, up_ratios=CODEC_UP_DEC) -> list:
+    """The kernel calls (as ``encoder_calls``, one K2 launch a unit) of
+    ``facodec.decoder.synthesize`` with parameters ``synth`` over
+    ``frames`` latent frames: the redecoder's."""
+    calls, t = [], frames
+    for blk, stride in zip(synth["blocks"], up_ratios):
+        calls.append(("snake_filtered", t, blk["act"]["alpha"].numel(), 0, blk["act"], None))
+        t *= stride
+        calls += [("residual_unit", t, blk["up"]["w"].shape[1], d, u, None)
+                  for u, d in zip(blk["res"], (1, 3, 9))]
+    calls.append(("snake_filtered", t, synth["final_act"]["alpha"].numel(), 0, synth["final_act"], None))
+    return calls
+
+
 def main_path_calls(codec, n_samples: int, f_bucket: int) -> list:
     """The kernel calls of one Flamed.sample: the encoder over the padded
     prompt, the decoder over the frame bucket."""
@@ -354,15 +395,15 @@ def launch_counts(calls) -> dict:
     return {k: sum(1 for c in calls if c[0] == k) for k in SOURCES}
 
 
-def training_phase(kernels, compare, codec, dev) -> dict:
+def training_phase(kernels, compare, codec, dev, tmp: str) -> dict:
     """Phase 6, the training path (see the module docstring).  ``codec`` is
-    the fp32 codec of path A (one K2 launch a residual unit).  The
-    precompute and the trainer run under PyTorch's own TF32 switches
-    (``DEFAULT_TF32``), every comparison with TF32 off.  Returns, for the
-    kernels line, {"precompute": one 17 s utterance's analysis, "validation":
-    the trainer run's validation audio}, each {"calls", "launches"}."""
-    import tempfile
-
+    the fp32 codec of path A (one K2 launch a residual unit); the corpus,
+    its precomputed set and the configs go under ``tmp``, which phase 10
+    reads again.  The precompute and the trainer run under PyTorch's own
+    TF32 switches (``DEFAULT_TF32``), every comparison with TF32 off.
+    Returns, for the kernels line, {"precompute": one 17 s utterance's
+    analysis, "validation": the trainer run's validation audio}, each
+    {"calls", "launches"}."""
     from flamed_tts_tpu_torch.config import load_yaml, save_yaml
     from flamed_tts_tpu_torch.data.dataset import batch_iterator
     from flamed_tts_tpu_torch.data.synthetic import fabricate_corpus
@@ -377,231 +418,230 @@ def training_phase(kernels, compare, codec, dev) -> dict:
     from flamed_tts_tpu_torch.utils.audio import load_wav
 
     gib = 2.0 ** 30
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        # 6.1 a corpus of 32 utterances of 3-16 s; the first one 15.6 s, so
-        # that its analysis runs at the 17 s bucket (272000 samples)
-        seconds = np.random.RandomState(0).uniform(3.0, 16.0, TRAIN_UTTERANCES)
-        seconds[0] = 15.6
-        manifest = fabricate_corpus(os.path.join(tmp, "corpus"), seconds, seed=0)
-        with open(manifest, encoding="utf-8") as fin:
-            lines = [ln.strip() for ln in fin if ln.strip()]
+    # 6.1 a corpus of 32 utterances of 3-16 s; the first one 15.6 s, so
+    # that its analysis runs at the 17 s bucket (272000 samples)
+    seconds = np.random.RandomState(0).uniform(3.0, 16.0, TRAIN_UTTERANCES)
+    seconds[0] = 15.6
+    manifest = fabricate_corpus(os.path.join(tmp, "corpus"), seconds, seed=0)
+    with open(manifest, encoding="utf-8") as fin:
+        lines = [ln.strip() for ln in fin if ln.strip()]
 
-        # 6.2 precompute on the card, under PyTorch's own TF32 switches
-        npz_dir = os.path.join(tmp, "npz")
-        kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        with tf32(*DEFAULT_TF32):
-            setting = tf32_label()
-            stats = precompute(lines, npz_dir, codec)
-            torch.cuda.synchronize()
-        run_launches = dict(kernels.launches)
-        audio_s, wall = stats["audio_s"], stats["seconds"]
-        log(f"[train precompute] {stats['done']} utterances ({stats['failed']} failed), "
-            f"{audio_s:.1f} s of audio in {wall:.2f} s ({setting}): {stats['done'] / wall:.2f} "
-            f"utterances/s, {audio_s / wall:.1f} audio-s/s; launches {json.dumps(run_launches)}; "
-            f"peak memory {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
-        expected = {"snake_filtered": 5 * TRAIN_UTTERANCES, "residual_unit": 12 * TRAIN_UTTERANCES,
-                    "residual_stack": 0}
-        if stats["done"] != TRAIN_UTTERANCES or stats["failed"] or run_launches != expected:
-            raise AssertionError(f"precompute: {stats}, launches {run_launches}, expected {expected}")
-        # one >= 12 s utterance analysed again on the card, TF32 off and its
-        # launches counted, against the CPU's plain path
-        wav = load_wav(lines[0].split("|")[0])
-        padded = len(codec.pad_prompt_wav(wav)[0])
-        kernels.reset_launches()
-        card = analyze_utterance(codec, wav)
+    # 6.2 precompute on the card, under PyTorch's own TF32 switches
+    npz_dir = os.path.join(tmp, "npz")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with tf32(*DEFAULT_TF32):
+        setting = tf32_label()
+        stats = precompute(lines, npz_dir, codec)
         torch.cuda.synchronize()
-        launches = dict(kernels.launches)
-        ref = analyze_utterance(FaCodec.from_pretrained(CODEC_DIR, device="cpu"), wav)
-        n_diff = int((card["code"] != ref["code"]).sum())
-        errs = {k: float(np.abs(card[k] - ref[k]).max()) for k in ("emb", "spk")}
-        ok = n_diff == 0 and all(np.all(np.abs(card[k] - ref[k]) <= TOL + TOL * np.abs(ref[k]))
-                                 for k in ("emb", "spk"))
-        log(f"[train precompute] utterance 0 ({len(wav)} samples, padded to {padded}) on the card "
-            f"({tf32_label()}; launches {json.dumps(launches)}) vs CPU: {n_diff} of "
-            f"{ref['code'].size} RVQ codes differ; emb max abs diff {errs['emb']:.3e}, spk "
-            f"{errs['spk']:.3e} (tol {TOL} abs + {TOL} rel: fp32, other summation orders) "
-            f"{'ok' if ok else 'FAIL'}")
-        with np.load(os.path.join(npz_dir, "utt00000.npz")) as got:
-            got = {k: got[k] for k in ("code", "emb", "spk")}
-        log(f"[train precompute] utterance 0 as the precompute wrote it ({setting}) vs CPU: "
-            f"{int((got['code'] != ref['code']).sum())} of {ref['code'].size} RVQ codes differ; emb "
-            f"max abs diff {float(np.abs(got['emb'] - ref['emb']).max()):.3e}, spk "
-            f"{float(np.abs(got['spk'] - ref['spk']).max()):.3e} (not held: TF32 convolutions)")
-        calls = encoder_calls(codec, padded)
-        if not ok or padded != 17 * 16000 or launches != launch_counts(calls):
-            raise AssertionError(f"the card's analysis of utterance 0 disagrees with the CPU's, or "
-                                 f"its launches {launches} are not those of {padded} samples")
-        # K1 and K2 at the first two encoder blocks' lengths of the 17 s bucket
-        # (and one row short of the first), with the trained codec's weights
-        gen = torch.Generator(device=dev).manual_seed(3)
-        for blk, t in zip(codec.enc_params["blocks"][:2], (272000, 136000)):
-            c = blk["act"]["alpha"].numel()
-            for t_len in ((t, t - 1) if c == 32 else (t,)):
-                x = torch.randn((1, t_len, c), generator=gen, device=dev)
-                compare("snake_filtered", snake_filtered_cuda(x, blk["act"]["alpha"], blk["act"]["beta"]),
-                        snake_filtered_reference(x, blk["act"]["alpha"], blk["act"]["beta"]),
-                        f"precompute (1, {t_len}, {c})", path="precompute")
-                for u, d in zip(blk["res"], (1, 3, 9)):
-                    compare("residual_unit", residual_unit_cuda(x, u, d),
-                            residual_unit_reference(x, u, d), f"precompute (1, {t_len}, {c}) d={d}",
-                            path="precompute")
+    run_launches = dict(kernels.launches)
+    audio_s, wall = stats["audio_s"], stats["seconds"]
+    log(f"[train precompute] {stats['done']} utterances ({stats['failed']} failed), "
+        f"{audio_s:.1f} s of audio in {wall:.2f} s ({setting}): {stats['done'] / wall:.2f} "
+        f"utterances/s, {audio_s / wall:.1f} audio-s/s; launches {json.dumps(run_launches)}; "
+        f"peak memory {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    expected = {"snake_filtered": 5 * TRAIN_UTTERANCES, "residual_unit": 12 * TRAIN_UTTERANCES,
+                "residual_stack": 0}
+    if stats["done"] != TRAIN_UTTERANCES or stats["failed"] or run_launches != expected:
+        raise AssertionError(f"precompute: {stats}, launches {run_launches}, expected {expected}")
+    # one >= 12 s utterance analysed again on the card, TF32 off and its
+    # launches counted, against the CPU's plain path
+    wav = load_wav(lines[0].split("|")[0])
+    padded = len(codec.pad_prompt_wav(wav)[0])
+    kernels.reset_launches()
+    card = analyze_utterance(codec, wav)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    ref = analyze_utterance(FaCodec.from_pretrained(CODEC_DIR, device="cpu"), wav)
+    n_diff = int((card["code"] != ref["code"]).sum())
+    errs = {k: float(np.abs(card[k] - ref[k]).max()) for k in ("emb", "spk")}
+    ok = n_diff == 0 and all(np.all(np.abs(card[k] - ref[k]) <= TOL + TOL * np.abs(ref[k]))
+                             for k in ("emb", "spk"))
+    log(f"[train precompute] utterance 0 ({len(wav)} samples, padded to {padded}) on the card "
+        f"({tf32_label()}; launches {json.dumps(launches)}) vs CPU: {n_diff} of "
+        f"{ref['code'].size} RVQ codes differ; emb max abs diff {errs['emb']:.3e}, spk "
+        f"{errs['spk']:.3e} (tol {TOL} abs + {TOL} rel: fp32, other summation orders) "
+        f"{'ok' if ok else 'FAIL'}")
+    with np.load(os.path.join(npz_dir, "utt00000.npz")) as got:
+        got = {k: got[k] for k in ("code", "emb", "spk")}
+    log(f"[train precompute] utterance 0 as the precompute wrote it ({setting}) vs CPU: "
+        f"{int((got['code'] != ref['code']).sum())} of {ref['code'].size} RVQ codes differ; emb "
+        f"max abs diff {float(np.abs(got['emb'] - ref['emb']).max()):.3e}, spk "
+        f"{float(np.abs(got['spk'] - ref['spk']).max()):.3e} (not held: TF32 convolutions)")
+    calls = encoder_calls(codec, padded)
+    if not ok or padded != 17 * 16000 or launches != launch_counts(calls):
+        raise AssertionError(f"the card's analysis of utterance 0 disagrees with the CPU's, or "
+                             f"its launches {launches} are not those of {padded} samples")
+    # K1 and K2 at the first two encoder blocks' lengths of the 17 s bucket
+    # (and one row short of the first), with the trained codec's weights
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for blk, t in zip(codec.enc_params["blocks"][:2], (272000, 136000)):
+        c = blk["act"]["alpha"].numel()
+        for t_len in ((t, t - 1) if c == 32 else (t,)):
+            x = torch.randn((1, t_len, c), generator=gen, device=dev)
+            compare("snake_filtered", snake_filtered_cuda(x, blk["act"]["alpha"], blk["act"]["beta"]),
+                    snake_filtered_reference(x, blk["act"]["alpha"], blk["act"]["beta"]),
+                    f"precompute (1, {t_len}, {c})", path="precompute")
+            for u, d in zip(blk["res"], (1, 3, 9)):
+                compare("residual_unit", residual_unit_cuda(x, u, d),
+                        residual_unit_reference(x, u, d), f"precompute (1, {t_len}, {c}) d={d}",
+                        path="precompute")
 
-        # 6.3 the trainer CLI at full width, under PyTorch's own TF32
-        # switches: configs/*.yaml with the data config pointed at the
-        # precomputed set
-        cfg_dir, exp = os.path.join(tmp, "configs"), os.path.join(tmp, "exp")
-        for name in ("prior", "prob", "codec", "optimizer", "data"):
-            part = load_yaml(os.path.join(ROOT, "configs", f"{name}.yaml"))
-            if name == "data":
-                part.update(data_root=npz_dir, use_precomputed=True)
-            save_yaml(part, os.path.join(cfg_dir, f"{name}.yaml"))
-        args = ["--config-dir", cfg_dir, "--exp-dir", exp, "--val-every", "15",
-                "--codec-dir", CODEC_DIR, "--audio-log-after", "0", "--device", dev.type]
-        kernels.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        with tf32(*DEFAULT_TF32):
-            setting = tf32_label()
-            state = train_cli.main(args + ["--max-steps", str(TRAIN_STEPS), "--log-every", "5"])
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        train_launches = dict(kernels.launches)
-        with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fin:
-            records = [json.loads(x) for x in fin]
-        steps = [r for r in records if "total_loss" in r]
-        timed = [r for r in steps if "steps_per_sec" in r]
-        vals = [r["total_loss_val"] for r in records if "total_loss_val" in r]
-        loss_keys = ("dur_loss", "sil_loss", "prior_loss", "fm_loss", "anchor_loss", "total_loss",
-                     "grad_norm")
-        finite = all(np.isfinite(r[k]) for r in steps for k in loss_keys) and all(np.isfinite(vals))
-        files = [os.path.join(exp, f) for f in ("metrics.jsonl", "config.yaml", "checkpoints/last.npz",
-                                                "checkpoints/train_state.pt")]
-        wavs = [os.path.join(exp, "val_audio", f"step{s}_{k}.wav") for s in (15, 30)
-                for k in ("synth", "gt")]
-        rate = {k: float(np.median([r[k] for r in timed])) for k in
-                ("steps_per_sec", "samples_per_sec", "frames_per_sec")}
-        # the validation audio's decodes: the synthesis at its frame bucket,
-        # the ground truth at its length (metrics.jsonl holds floats)
-        audio = [r for r in records if "val_audio_frame_bucket" in r]
-        val_calls = [c for r in audio for k in ("val_audio_frame_bucket", "val_audio_gt_frames")
-                     for c in decoder_calls(codec, int(r[k]))]
-        log(f"[train cli] {setting}; {state.step} steps at batch 16 in {wall:.1f} s (first step "
-            f"{next(r['first_step_s'] for r in records if 'first_step_s' in r):.1f} s); warm "
-            f"intervals of 5 steps: median step {1e3 / rate['steps_per_sec']:.1f} ms, "
-            f"{rate['samples_per_sec']:.2f} samples/s, {rate['frames_per_sec']:.0f} valid frames/s "
-            f"(each {', '.join(f'{1e3 / r['steps_per_sec']:.1f}' for r in timed)} ms a step); "
-            f"peak memory {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
-        log(f"[train cli] total_loss at steps {[r['step'] for r in steps]}: "
-            f"{[round(r['total_loss'], 4) for r in steps]}; grad_norm "
-            f"{[round(r['grad_norm'], 3) for r in steps]}; total_loss_val {vals}; "
-            f"launches {json.dumps(train_launches)} (validation audio at steps "
-            f"{[r['step'] for r in audio]}: synthesis decoded at "
-            f"{[int(r['val_audio_frame_bucket']) for r in audio]} frames, ground truth at "
-            f"{[int(r['val_audio_gt_frames']) for r in audio]})")
-        missing = [f for f in files + wavs if not os.path.isfile(f)]
-        if (state.step != TRAIN_STEPS or not finite or len(vals) != 2 or missing or len(audio) != 2
-                or train_launches != launch_counts(val_calls) or not train_launches["snake_filtered"]
-                or not train_launches["residual_unit"]):
-            raise AssertionError(f"trainer: step {state.step}, finite {finite}, validations {vals}, "
-                                 f"missing {missing}, validation audio {audio}, launches "
-                                 f"{train_launches}, expected {launch_counts(val_calls)}")
-        del state
-        torch.cuda.empty_cache()
+    # 6.3 the trainer CLI at full width, under PyTorch's own TF32
+    # switches: configs/*.yaml with the data config pointed at the
+    # precomputed set
+    cfg_dir, exp = os.path.join(tmp, "configs"), os.path.join(tmp, "exp")
+    for name in ("prior", "prob", "codec", "optimizer", "data"):
+        part = load_yaml(os.path.join(ROOT, "configs", f"{name}.yaml"))
+        if name == "data":
+            part.update(data_root=npz_dir, use_precomputed=True)
+        save_yaml(part, os.path.join(cfg_dir, f"{name}.yaml"))
+    args = ["--config-dir", cfg_dir, "--exp-dir", exp, "--val-every", "15",
+            "--codec-dir", CODEC_DIR, "--audio-log-after", "0", "--device", dev.type]
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tf32(*DEFAULT_TF32):
+        setting = tf32_label()
+        state = train_cli.main(args + ["--max-steps", str(TRAIN_STEPS), "--log-every", "5"])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = dict(kernels.launches)
+    with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fin:
+        records = [json.loads(x) for x in fin]
+    steps = [r for r in records if "total_loss" in r]
+    timed = [r for r in steps if "steps_per_sec" in r]
+    vals = [r["total_loss_val"] for r in records if "total_loss_val" in r]
+    loss_keys = ("dur_loss", "sil_loss", "prior_loss", "fm_loss", "anchor_loss", "total_loss",
+                 "grad_norm")
+    finite = all(np.isfinite(r[k]) for r in steps for k in loss_keys) and all(np.isfinite(vals))
+    files = [os.path.join(exp, f) for f in ("metrics.jsonl", "config.yaml", "checkpoints/last.npz",
+                                            "checkpoints/train_state.pt")]
+    wavs = [os.path.join(exp, "val_audio", f"step{s}_{k}.wav") for s in (15, 30)
+            for k in ("synth", "gt")]
+    rate = {k: float(np.median([r[k] for r in timed])) for k in
+            ("steps_per_sec", "samples_per_sec", "frames_per_sec")}
+    # the validation audio's decodes: the synthesis at its frame bucket,
+    # the ground truth at its length (metrics.jsonl holds floats)
+    audio = [r for r in records if "val_audio_frame_bucket" in r]
+    val_calls = [c for r in audio for k in ("val_audio_frame_bucket", "val_audio_gt_frames")
+                 for c in decoder_calls(codec, int(r[k]))]
+    log(f"[train cli] {setting}; {state.step} steps at batch 16 in {wall:.1f} s (first step "
+        f"{next(r['first_step_s'] for r in records if 'first_step_s' in r):.1f} s); warm "
+        f"intervals of 5 steps: median step {1e3 / rate['steps_per_sec']:.1f} ms, "
+        f"{rate['samples_per_sec']:.2f} samples/s, {rate['frames_per_sec']:.0f} valid frames/s "
+        f"(each {', '.join(f'{1e3 / r['steps_per_sec']:.1f}' for r in timed)} ms a step); "
+        f"peak memory {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
+    log(f"[train cli] total_loss at steps {[r['step'] for r in steps]}: "
+        f"{[round(r['total_loss'], 4) for r in steps]}; grad_norm "
+        f"{[round(r['grad_norm'], 3) for r in steps]}; total_loss_val {vals}; "
+        f"launches {json.dumps(train_launches)} (validation audio at steps "
+        f"{[r['step'] for r in audio]}: synthesis decoded at "
+        f"{[int(r['val_audio_frame_bucket']) for r in audio]} frames, ground truth at "
+        f"{[int(r['val_audio_gt_frames']) for r in audio]})")
+    missing = [f for f in files + wavs if not os.path.isfile(f)]
+    if (state.step != TRAIN_STEPS or not finite or len(vals) != 2 or missing or len(audio) != 2
+            or train_launches != launch_counts(val_calls) or not train_launches["snake_filtered"]
+            or not train_launches["residual_unit"]):
+        raise AssertionError(f"trainer: step {state.step}, finite {finite}, validations {vals}, "
+                             f"missing {missing}, validation audio {audio}, launches "
+                             f"{train_launches}, expected {launch_counts(val_calls)}")
+    del state
+    torch.cuda.empty_cache()
 
-        # 6.4 the loss falls on one fixed batch at lr 1e-3, no warmup (the
-        # trainer's TF32 switches)
-        cfg = train_cli.load_training_config(
-            cfg_dir, overrides={"optimizer_cfg": {"lr": 1e-3, "warmup_steps": 0}})
-        trainset, _ = train_cli.make_datasets(cfg["dataset_cfg"])
-        collator = train_cli.make_collator(cfg["dataset_cfg"], 0)
-        batch = next(batch_iterator(trainset, collator, 16, shuffle=True, seed=0))
-        model = Flamed(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    # 6.4 the loss falls on one fixed batch at lr 1e-3, no warmup (the
+    # trainer's TF32 switches)
+    cfg = train_cli.load_training_config(
+        cfg_dir, overrides={"optimizer_cfg": {"lr": 1e-3, "warmup_steps": 0}})
+    trainset, _ = train_cli.make_datasets(cfg["dataset_cfg"])
+    collator = train_cli.make_collator(cfg["dataset_cfg"], 0)
+    batch = next(batch_iterator(trainset, collator, 16, shuffle=True, seed=0))
+    model = Flamed(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    state = init_train_state(model.prior, model.prob, cfg["optimizer_cfg"], seed=0)
+    on_card = batch_to_device(batch, dev)
+    with tf32(*DEFAULT_TF32):
+        losses = [float(train_step(state, on_card)["total_loss"]) for _ in range(20)]
+        log(f"[train fixed batch] {tf32_label()}; total_loss over 20 steps at lr 1e-3 (frames "
+            f"{batch['codes'].shape[-1]}, phonemes {batch['phonemes'].shape[-1]}): "
+            f"{[round(v, 4) for v in losses]}")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError("the loss did not fall over 20 steps on one batch")
+        train_step_breakdown(state, on_card, batch)
+    del model, state, on_card
+    torch.cuda.empty_cache()
+
+    # 6.5 one deterministic step (dropout rates 0) on the card, TF32 off,
+    # and on the CPU, from the same parameters and the same draws.  eps 1e-4 in
+    # place of 1e-9: a parameter whose gradient is zero in exact
+    # arithmetic (the attention's key biases, the depthwise conv biases
+    # before a per-channel norm) holds rounding noise that differs
+    # between the devices, and Adam's first step scales it to +-lr at
+    # eps 1e-9
+    cfg = train_cli.load_training_config(cfg_dir, overrides={
+        "optimizer_cfg": {"warmup_steps": 0, "eps": 1e-4},
+        "prior_generator": {"transformer": {"encoder_dropout": 0.0, "decoder_dropout": 0.0},
+                            "variance_adaptor": {g: {"drop_out": 0.0} for g in
+                                                 ("duration_generator", "sil_generator")}}})
+    order = np.argsort([trainset[i]["code"].shape[-1] for i in range(len(trainset))])
+    batch = collator([trainset[int(i)] for i in order[:2]])
+    b, l = batch["phonemes"].shape
+    lf = batch["codes"].shape[-1]
+    nrng = np.random.RandomState(7)
+    draws = {"pva_t": nrng.rand(b, 1), "dur_noise": nrng.randn(b, l),
+             "sil_noise": nrng.randn(b, l), "prob_t": nrng.rand(b, lf, 1),
+             "prob_noise": nrng.randn(b, lf, 256)}
+    cpu_model = Flamed(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    params = {"prior": cpu_model.prior.state_dict(), "prob": cpu_model.prob.state_dict()}
+    start = {k: {n: v.clone() for n, v in sd.items()} for k, sd in params.items()}
+    card_model = Flamed(cfg, params=params, device=dev)
+    out = {}
+    for where, model in (("card", card_model), ("cpu", cpu_model)):
+        device = model.device
         state = init_train_state(model.prior, model.prob, cfg["optimizer_cfg"], seed=0)
-        on_card = batch_to_device(batch, dev)
-        with tf32(*DEFAULT_TF32):
-            losses = [float(train_step(state, on_card)["total_loss"]) for _ in range(20)]
-            log(f"[train fixed batch] {tf32_label()}; total_loss over 20 steps at lr 1e-3 (frames "
-                f"{batch['codes'].shape[-1]}, phonemes {batch['phonemes'].shape[-1]}): "
-                f"{[round(v, 4) for v in losses]}")
-            if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
-                raise AssertionError("the loss did not fall over 20 steps on one batch")
-            train_step_breakdown(state, on_card, batch)
-        del model, state, on_card
-        torch.cuda.empty_cache()
+        metrics = train_step(state, batch_to_device(batch, device),
+                             draws={k: torch.as_tensor(v, dtype=torch.float32, device=device)
+                                    for k, v in draws.items()})
+        out[where] = ({k: float(v) for k, v in metrics.items()},
+                      {k: {n: v.float().cpu() for n, v in sd.items()} for k, sd in
+                       (("prior", model.prior.state_dict()), ("prob", model.prob.state_dict()))})
+    (mg, pg), (mc, pc) = out["card"], out["cpu"]
+    loss_rel = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc if k != "grad_norm")
+    norm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
+    worst, moved = 0.0, 0.0
+    for part in pc:
+        for n, vc in pc[part].items():
+            excess = (pg[part][n] - vc).abs() - (1e-5 + 1e-4 * vc.abs())
+            worst = max(worst, float(excess.max()))
+            moved = max(moved, float((vc - start[part][n]).abs().max()))
+    log(f"[train card vs CPU] one step, batch of 2 (phonemes {l}, frames {lf}): losses max rel "
+        f"diff {loss_rel:.3e} (tol 1e-4), grad_norm {mg['grad_norm']:.4f} vs {mc['grad_norm']:.4f}, "
+        f"rel {norm_rel:.3e} (tol 1e-3); parameters after AdamW: worst excess over 1e-5 abs + "
+        f"1e-4 rel {worst:.3e} (<= 0 passes), largest move {moved:.3e}")
+    if not (loss_rel <= 1e-4 and norm_rel <= 1e-3 and worst <= 0.0 and moved > 1e-5):
+        raise AssertionError("a training step on the card disagrees with the same on the CPU")
+    del card_model, cpu_model, state
+    torch.cuda.empty_cache()
 
-        # 6.5 one deterministic step (dropout rates 0) on the card, TF32 off,
-        # and on the CPU, from the same parameters and the same draws.  eps 1e-4 in
-        # place of 1e-9: a parameter whose gradient is zero in exact
-        # arithmetic (the attention's key biases, the depthwise conv biases
-        # before a per-channel norm) holds rounding noise that differs
-        # between the devices, and Adam's first step scales it to +-lr at
-        # eps 1e-9
-        cfg = train_cli.load_training_config(cfg_dir, overrides={
-            "optimizer_cfg": {"warmup_steps": 0, "eps": 1e-4},
-            "prior_generator": {"transformer": {"encoder_dropout": 0.0, "decoder_dropout": 0.0},
-                                "variance_adaptor": {g: {"drop_out": 0.0} for g in
-                                                     ("duration_generator", "sil_generator")}}})
-        order = np.argsort([trainset[i]["code"].shape[-1] for i in range(len(trainset))])
-        batch = collator([trainset[int(i)] for i in order[:2]])
-        b, l = batch["phonemes"].shape
-        lf = batch["codes"].shape[-1]
-        nrng = np.random.RandomState(7)
-        draws = {"pva_t": nrng.rand(b, 1), "dur_noise": nrng.randn(b, l),
-                 "sil_noise": nrng.randn(b, l), "prob_t": nrng.rand(b, lf, 1),
-                 "prob_noise": nrng.randn(b, lf, 256)}
-        cpu_model = Flamed(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
-        params = {"prior": cpu_model.prior.state_dict(), "prob": cpu_model.prob.state_dict()}
-        start = {k: {n: v.clone() for n, v in sd.items()} for k, sd in params.items()}
-        card_model = Flamed(cfg, params=params, device=dev)
-        out = {}
-        for where, model in (("card", card_model), ("cpu", cpu_model)):
-            device = model.device
-            state = init_train_state(model.prior, model.prob, cfg["optimizer_cfg"], seed=0)
-            metrics = train_step(state, batch_to_device(batch, device),
-                                 draws={k: torch.as_tensor(v, dtype=torch.float32, device=device)
-                                        for k, v in draws.items()})
-            out[where] = ({k: float(v) for k, v in metrics.items()},
-                          {k: {n: v.float().cpu() for n, v in sd.items()} for k, sd in
-                           (("prior", model.prior.state_dict()), ("prob", model.prob.state_dict()))})
-        (mg, pg), (mc, pc) = out["card"], out["cpu"]
-        loss_rel = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc if k != "grad_norm")
-        norm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
-        worst, moved = 0.0, 0.0
-        for part in pc:
-            for n, vc in pc[part].items():
-                excess = (pg[part][n] - vc).abs() - (1e-5 + 1e-4 * vc.abs())
-                worst = max(worst, float(excess.max()))
-                moved = max(moved, float((vc - start[part][n]).abs().max()))
-        log(f"[train card vs CPU] one step, batch of 2 (phonemes {l}, frames {lf}): losses max rel "
-            f"diff {loss_rel:.3e} (tol 1e-4), grad_norm {mg['grad_norm']:.4f} vs {mc['grad_norm']:.4f}, "
-            f"rel {norm_rel:.3e} (tol 1e-3); parameters after AdamW: worst excess over 1e-5 abs + "
-            f"1e-4 rel {worst:.3e} (<= 0 passes), largest move {moved:.3e}")
-        if not (loss_rel <= 1e-4 and norm_rel <= 1e-3 and worst <= 0.0 and moved > 1e-5):
-            raise AssertionError("a training step on the card disagrees with the same on the CPU")
-        del card_model, cpu_model, state
-        torch.cuda.empty_cache()
-
-        # 6.6 resume for two more steps, then serve from last.npz
-        with tf32(*DEFAULT_TF32):
-            state = train_cli.main(args + ["--max-steps", str(TRAIN_STEPS + 2), "--log-every", "1",
-                                           "--resume-full"])
-        with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fin:
-            resumed = [json.loads(x) for x in fin][len(records):]
-        losses = [r["total_loss"] for r in resumed if "total_loss" in r]
-        log(f"[train resume] from step {TRAIN_STEPS} to {state.step}: total_loss {losses}")
-        if state.step != TRAIN_STEPS + 2 or len(losses) != 2 or not np.isfinite(losses).all():
-            raise AssertionError("resume did not continue the step count with finite losses")
-        del state
-        cfg = train_cli.load_training_config(cfg_dir)
-        model = Flamed.from_pretrained(cfg, os.path.join(exp, "checkpoints", "last.npz"), device=dev)
-        res = model.sample(text=TEXT, prompt_raw=prompt_wav(3.0, seed=4), codec=codec, seed=0,
-                           nsteps_durgen=32, nsteps_denoiser=32)
-        n = int(res["tgt_len"][0])
-        log(f"[train serve] last.npz through Flamed.from_pretrained: tgt_len {n}, wav "
-            f"{res['wav'].shape[0]} samples, finite {bool(np.isfinite(res['wav']).all())}")
-        if res["wav"].shape != (n * codec.hop,) or n <= 0 or not np.isfinite(res["wav"]).all():
-            raise AssertionError("the trained checkpoint did not serve a finite wav")
+    # 6.6 resume for two more steps, then serve from last.npz
+    with tf32(*DEFAULT_TF32):
+        state = train_cli.main(args + ["--max-steps", str(TRAIN_STEPS + 2), "--log-every", "1",
+                                       "--resume-full"])
+    with open(os.path.join(exp, "metrics.jsonl"), encoding="utf-8") as fin:
+        resumed = [json.loads(x) for x in fin][len(records):]
+    losses = [r["total_loss"] for r in resumed if "total_loss" in r]
+    log(f"[train resume] from step {TRAIN_STEPS} to {state.step}: total_loss {losses}")
+    if state.step != TRAIN_STEPS + 2 or len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError("resume did not continue the step count with finite losses")
+    del state
+    cfg = train_cli.load_training_config(cfg_dir)
+    model = Flamed.from_pretrained(cfg, os.path.join(exp, "checkpoints", "last.npz"), device=dev)
+    res = model.sample(text=TEXT, prompt_raw=prompt_wav(3.0, seed=4), codec=codec, seed=0,
+                       nsteps_durgen=32, nsteps_denoiser=32)
+    n = int(res["tgt_len"][0])
+    log(f"[train serve] last.npz through Flamed.from_pretrained: tgt_len {n}, wav "
+        f"{res['wav'].shape[0]} samples, finite {bool(np.isfinite(res['wav']).all())}")
+    if res["wav"].shape != (n * codec.hop,) or n <= 0 or not np.isfinite(res["wav"]).all():
+        raise AssertionError("the trained checkpoint did not serve a finite wav")
     return {"precompute": {"calls": calls, "launches": launches},
             "validation": {"calls": val_calls, "launches": train_launches}}
 
@@ -1096,9 +1136,8 @@ def codec_train_phase(kernels, compare, dev) -> dict:
     # each a 3 s source and a 3 s prompt -> wav, on the card and the CPU
     g = torch.Generator().manual_seed(5)
     v2_enc, v2_dec = init_encoder_params(g), extras.init_decoder_v2_params(g)
-    # the redecoder at the codec's synthesis width (configs/codec.yaml: 1024):
-    # at its reference default of 1280 the first block's units are 640 wide,
-    # past K2's 512 (ROADMAP Queue 2)
+    # the redecoder at its reference width (1280): units of 640 channels (K2's
+    # dilated conv in two passes in fp32) and of 80 (zero-padded to 96)
     redec = extras.init_redecoder_params(g, upsample_initial_channel=REDECODER_WIDTH)
     src, tgt = prompt_wav(3.0, seed=10), prompt_wav(3.0, seed=11) * 0.8
     codec = FaCodec.from_pretrained(CODEC_DIR, device=dev)
@@ -1130,12 +1169,17 @@ def codec_train_phase(kernels, compare, dev) -> dict:
         f"the target's timbre: wav {re_wav.shape}, finite {bool(np.isfinite(re_wav).all())}, launches "
         f"{json.dumps(re_launches)}; {int((scg != scc).sum())} of {scc.size} of the source's codes differ "
         f"between the card and the CPU")
+    re_calls = synth_calls(r["synth"], vc["card"][1].shape[1])
     if (v2_wav.shape != (1, 48000, 1) or re_wav.shape != (1, 48000, 1) or not np.isfinite(v2_wav).all()
-            or not np.isfinite(re_wav).all()):
-        raise AssertionError("voice conversion did not give a finite 3 s wav on the card")
+            or not np.isfinite(re_wav).all() or re_launches != launch_counts(re_calls)
+            or sorted({(t, c) for k, t, c, *_ in re_calls if k == "residual_unit"})
+            != sorted(REDECODER_K2_SHAPES)):
+        raise AssertionError("voice conversion did not give a finite 3 s wav on the card, or the "
+                             f"redecoder's launches {re_launches} are not those of its shapes")
     elapsed("8.5 voice conversion")
     calls = codec_train_calls(train_codec.tree_map(lambda t: t.detach(), params), CODEC_BATCH, CODEC_CROP * 200)
-    return {"codec_train": {"calls": calls, "launches": step_launches, "backward": backward}}
+    return {"codec_train": {"calls": calls, "launches": step_launches, "backward": backward},
+            "redecoder": {"calls": re_calls, "launches": re_launches}}
 
 
 def eval_phase(kernels, codec, dev) -> dict:
@@ -1398,6 +1442,238 @@ def eval_phase(kernels, codec, dev) -> dict:
         padded = len(codec.pad_prompt_wav(np.zeros(int(round(max(durations) * 16000)), np.float32))[0])
         calls = encoder_calls(codec, padded) + decoder_calls(codec, padded // codec.hop)
     return {"eval": {"calls": calls, "launches": {k: int(v) for k, v in per_utt.items()}}}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _g2p_card_vs_cpu(dev) -> None:
+    """Two updates of train_g2p (the second at lr / 2: the schedule warms up
+    over 2 of 20 steps) from the same parameters on the same 256 words and
+    dropout masks, on the card and on the CPU, TF32 off."""
+    from flamed_tts_tpu_torch import train_g2p
+    from flamed_tts_tpu_torch.text import neural_g2p as g2p
+
+    train_lex = train_g2p.build_dataset()[0]
+    src, tgt = train_g2p.to_arrays(sorted(train_lex.items())[:512])
+    params = train_g2p.init_params(np.random.RandomState(0))
+    params["pos"] = g2p.sinusoid_table(max(g2p.MAX_SRC, g2p.MAX_TGT), g2p.D_MODEL)
+    rng = np.random.RandomState(1)
+    shapes = ([(256, g2p.MAX_SRC, g2p.D_MODEL)] * (2 * g2p.N_ENC)
+              + [(256, g2p.MAX_TGT - 1, g2p.D_MODEL)] * (3 * g2p.N_DEC))
+    masks = [[rng.rand(*sh) >= 0.15 for sh in shapes] for _ in range(2)]
+    out = {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = train_g2p.tree_map(lambda a: torch.from_numpy(a.copy()).to(device).requires_grad_(), params)
+        opt = train_g2p.make_optimizer(p, 3e-4, 20)
+        losses = [float(train_g2p.train_step(p, opt, torch.from_numpy(src[i * 256:(i + 1) * 256]).to(device),
+                                             torch.from_numpy(tgt[i * 256:(i + 1) * 256]).to(device),
+                                             [torch.from_numpy(m).to(device) for m in masks[i]], 0.15, 0.1))
+                  for i in range(2)]
+        out[where] = (losses, g2p.flatten(train_g2p.tree_map(lambda t: t.detach().cpu().numpy(), p)))
+    (lg, pg), (lc, pc) = out["card"], out["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    worst = max(float((np.abs(pg[k] - pc[k]) - (1e-5 + 1e-4 * np.abs(pc[k]))).max()) for k in pc)
+    moved = max(float(np.abs(pc[k] - v).max()) for k, v in g2p.flatten(params).items())
+    log(f"[phase 10] [train_g2p card vs CPU] two updates, 256 words each ({tf32_label()}): losses "
+        f"{[round(v, 6) for v in lg]} vs {[round(v, 6) for v in lc]}, max rel diff {loss_rel:.3e} (tol "
+        f"1e-4); parameters' largest excess over 1e-5 abs + 1e-4 rel {worst:.3e} (<= 0 passes), "
+        f"largest move {moved:.3e}")
+    if not (loss_rel <= 1e-4 and worst <= 0.0 and moved > 1e-5):
+        raise AssertionError("train_g2p's step on the card disagrees with the CPU's")
+
+
+def parallel_phase(kernels, codec, model, dev, work: str) -> dict:
+    """Phase 10 (see the module docstring): the trainer under torchrun on a
+    1 x 1 mesh against the same step without one, ``sample_batch`` on a
+    1 x 1 mesh against no mesh, the native WAV codec, ``train_g2p``,
+    ``expand_lexicon`` and ``lexicon_coverage``.  ``model`` and ``codec``
+    are path A's (fp32, one K2 launch a unit); ``work`` holds phase 6's
+    corpus and configs.  Returns, for the kernels line, {"mesh": the mesh
+    call's calls and launches}."""
+    import hashlib
+    import io
+
+    from scipy.io import wavfile
+
+    from flamed_tts_tpu_torch import expand_lexicon, lexicon_coverage, train_g2p
+    from flamed_tts_tpu_torch.config import load_yaml, save_yaml
+    from flamed_tts_tpu_torch.data.dataset import batch_iterator
+    from flamed_tts_tpu_torch.models.flamed import Flamed
+    from flamed_tts_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from flamed_tts_tpu_torch.train.step import batch_to_device, init_train_state, train_step
+    from flamed_tts_tpu_torch.text import neural_g2p as g2p
+    from flamed_tts_tpu_torch.train import cli as train_cli
+    from flamed_tts_tpu_torch.utils import native_audio
+
+    t_phase = time.perf_counter()
+
+    def elapsed(step):
+        log(f"[phase 10] {step} done at {time.perf_counter() - t_phase:.1f} s")
+
+    # 10.1 the trainer under torchrun on a 1 x 1 mesh (NCCL), 3 steps on
+    # phase 6's precomputed corpus, against its first step without a mesh;
+    # both under PyTorch's own TF32 switches, the data order fixed (seed 0)
+    cfg_dir = os.path.join(work, "configs10")
+    for name in ("prior", "prob", "codec", "optimizer", "data"):
+        part = load_yaml(os.path.join(work, "configs", f"{name}.yaml"))
+        if name == "data":
+            part["seed"] = 0
+        save_yaml(part, os.path.join(cfg_dir, f"{name}.yaml"))
+    common = ["--config-dir", cfg_dir, "--log-every", "1", "--val-every", "1000", "--device", dev.type]
+    exp_mesh = os.path.join(work, "exp_mesh")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([ROOT, os.environ.get("PYTHONPATH", "")]))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+           "-m", "flamed_tts_tpu_torch.train", "--devices", "1,1", "--exp-dir", exp_mesh,
+           "--max-steps", "3", *common]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun trainer failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    mesh_line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("Mesh:"))
+    # the same first step without a mesh, as the CLI makes it (datasets, the
+    # collator's first batch, the model and the state from seed 0), without
+    # the CLI's checkpoint writes
+    cfg = train_cli.load_training_config(cfg_dir)
+    trainset, _ = train_cli.make_datasets(cfg["dataset_cfg"])
+    collator = train_cli.make_collator(cfg["dataset_cfg"], 0)
+    first = next(batch_iterator(trainset, collator, int(cfg["dataset_cfg"]["batch_size"]), shuffle=True,
+                                seed=0))
+    one = Flamed(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    state = init_train_state(one.prior, one.prob, cfg["optimizer_cfg"], 0)
+    with tf32(*DEFAULT_TF32):
+        setting = tf32_label()
+        first_one = {k: float(v) for k, v in train_step(state, batch_to_device(first, dev)).items()}
+    del one, state
+    torch.cuda.empty_cache()
+    with open(os.path.join(exp_mesh, "metrics.jsonl"), encoding="utf-8") as fin:
+        rec_mesh = [json.loads(x) for x in fin]
+    first_mesh = next(r for r in rec_mesh if r["step"] == 1 and "total_loss" in r)
+    loss_rel = abs(first_mesh["total_loss"] - first_one["total_loss"]) / abs(first_one["total_loss"])
+    norm_rel = abs(first_mesh["grad_norm"] - first_one["grad_norm"]) / abs(first_one["grad_norm"])
+    losses = [r["total_loss"] for r in rec_mesh if "total_loss" in r]
+    rates = [r["steps_per_sec"] for r in rec_mesh if "steps_per_sec" in r]
+    batch = load_yaml(os.path.join(cfg_dir, "data.yaml"))["batch_size"]
+    log(f"[phase 10] [train torchrun] {mesh_line.strip()!r}; {' '.join(cmd[2:])} ({setting}): 3 steps "
+        f"at batch {batch} in {wall:.1f} s with start-up, total_loss {[round(v, 4) for v in losses]}, "
+        f"steps/s after the first {[round(v, 2) for v in rates]}; step 1 against the same step "
+        f"without a mesh: total_loss {first_mesh['total_loss']:.6f} vs {first_one['total_loss']:.6f}, "
+        f"gap {loss_rel:.3e} (tol 1e-4), grad_norm {first_mesh['grad_norm']:.4f} vs "
+        f"{first_one['grad_norm']:.4f}, gap {norm_rel:.3e} (tol 1e-3: phase 6's)")
+    if not (len(losses) == 3 and np.isfinite(losses).all() and loss_rel <= 1e-4 and norm_rel <= 1e-3
+            and os.path.isfile(os.path.join(exp_mesh, "checkpoints", "last.npz"))):
+        raise AssertionError("the trainer on a 1 x 1 mesh disagrees with one process")
+    elapsed("10.1 the trainer under torchrun")
+
+    # 10.2 sample_batch on a 1 x 1 mesh (NCCL, this process): a batch of 3
+    # with prompt wavs (the encoder per rank: K1, K2), against the same call
+    # without a mesh; TF32 off
+    device = init_distributed(dev.type, f"tcp://127.0.0.1:{_free_port()}", 1, 0)
+    mesh = make_mesh(1, 1, dev.type)
+    ids = np.zeros((3, 60), np.int64)
+    src_lens = np.array([60, 47, 33], np.int64)
+    for i, n in enumerate(src_lens):
+        ids[i, :n] = PHONEMES[:n]
+    pads = [codec.pad_prompt_wav(prompt_wav(s, seed=20 + i)) for i, s in enumerate((3.0, 2.5, 2.0))]
+    width = max(len(w) for w, _ in pads)
+    wavs = np.stack([np.pad(w, (0, width - len(w))) for w, _ in pads])
+    frames = np.array([f for _, f in pads], np.int64)
+    outs = {}
+    for where, m in (("none", None), ("mesh", mesh)):
+        model.sampler._ratio_history.clear()  # both take a first call's speculative bucket
+        kernels.reset_launches()
+        outs[where] = model.sample_batch(phonemes=ids, src_lens=src_lens, prompt_wav=wavs,
+                                         prompt_frames=frames, codec=codec, seed=3, nsteps_durgen=32,
+                                         nsteps_denoiser=32, mesh=m)
+        torch.cuda.synchronize()
+        outs[where]["launches"] = dict(kernels.launches)
+    torch.distributed.destroy_process_group()
+    a, b = outs["mesh"], outs["none"]
+    wav_tol = 1e-5 + 1.0 / 32767  # phase 4's
+    wav_err = float(np.abs(a["wav"] - b["wav"]).max()) if a["wav"].shape == b["wav"].shape else math.inf
+    codes_equal = torch.equal(a["prior_logits"].argmax(-1), b["prior_logits"].argmax(-1))
+    calls = [(*c, 3) for c in main_path_calls(codec, width, a["frame_bucket"])]
+    expected = launch_counts(calls)
+    log(f"[phase 10] [sample_batch mesh 1x1] {device}: batch 3, src_lens {src_lens.tolist()}, prompts "
+        f"of {frames.tolist()} frames: tgt_len {a['tgt_len'].tolist()} vs {b['tgt_len'].tolist()} "
+        f"without a mesh, frame bucket {a['frame_bucket']} vs {b['frame_bucket']}, the prior's codes "
+        f"{'equal' if codes_equal else 'DIFFER'}, wav {a['wav'].shape} max abs diff {wav_err:.3e} (tol "
+        f"{wav_tol:.3e}, phase 4's); launches {json.dumps(a['launches'])} (expected from its shapes "
+        f"{json.dumps(expected)}), without a mesh {json.dumps(b['launches'])}")
+    if (not np.array_equal(a["tgt_len"], b["tgt_len"]) or not np.array_equal(a["tgt_mask"], b["tgt_mask"])
+            or a["frame_bucket"] != b["frame_bucket"] or not codes_equal or not wav_err <= wav_tol
+            or not np.isfinite(a["wav"]).all() or a["launches"] != expected
+            or a["launches"]["residual_unit"] == 0 or a["launches"]["snake_filtered"] == 0):
+        raise AssertionError("sample_batch on a 1 x 1 mesh disagrees with the call without one")
+    elapsed("10.2 sample_batch on a mesh")
+
+    # 10.3 the native WAV codec (g++ at first use) on phase 6's corpus
+    # against scipy: decode, and encode byte for byte
+    t0 = time.perf_counter()
+    if native_audio.library() is None:
+        raise AssertionError(f"the native WAV codec did not build: {native_audio.build_error}")
+    build_s = time.perf_counter() - t0
+    corpus = os.path.join(work, "corpus")
+    paths = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(corpus) for f in fs if f.endswith(".wav"))[:8]
+    n_samples, same = 0, True
+    for path in paths:
+        with open(path, "rb") as fin:
+            raw = fin.read()
+        wav, sr = native_audio.decode_wav(raw)
+        ref_sr, data = wavfile.read(path)
+        same &= sr == ref_sr and data.dtype == np.int16 and np.array_equal(wav, (data / 32768.0).astype(np.float32))
+        buf = io.BytesIO()
+        wavfile.write(buf, sr, (np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16))
+        same &= native_audio.encode_wav(wav, sr) == buf.getvalue()
+        n_samples += len(wav)
+    log(f"[wavio] {native_audio.library_path()} built in {build_s:.2f} s (g++); {len(paths)} of phase "
+        f"6's files ({n_samples} samples): decoded {'equal to' if same else 'UNLIKE'} scipy's, "
+        f"re-encoded byte for byte {'equal to' if same else 'UNLIKE'} scipy's 16-bit PCM")
+    if not same or not paths:
+        raise AssertionError("the native WAV codec disagrees with scipy")
+    elapsed("10.3 native audio")
+
+    # 10.4 train_g2p at the tool's widths and batch (256), cut from 120
+    # epochs to G2P_EPOCHS; one step on the card against the CPU
+    out = os.path.join(work, "g2p", "g2p_weights.npz")
+    with tf32(*DEFAULT_TF32):
+        setting = tf32_label()
+        res = train_g2p.main(["--out", out, "--epochs", str(G2P_EPOCHS), "--device", dev.type])
+    words = {w: g2p.NeuralG2P(out)(w) for w in ("okonkwo", "reykjavik", "quinoa")}
+    log(f"[phase 10] [train_g2p] {setting}; {G2P_EPOCHS} of the tool's 120 epochs at batch 256 "
+        f"({res['steps']} steps): median step {res['step_ms']:.2f} ms, last epoch's loss "
+        f"{res['loss']:.4f}; held-out PER (stress) {res['heldout_per']:.4f}, proper nouns "
+        f"{res['gold_per']:.4f}; {json.dumps(words)}")
+    if not (np.isfinite(res["loss"]) and 0.0 <= res["heldout_per"] <= 1.5):
+        raise AssertionError("train_g2p did not train on the card")
+    _g2p_card_vs_cpu(dev)
+    elapsed("10.4 train_g2p")
+
+    # 10.5 the lexicon tools: their outputs against this repository's CPU
+    # run of them (tests/test_torch_g2p_tools.py holds the same outputs to
+    # the JAX tools')
+    lex = os.path.join(work, "english-expanded.txt")
+    expand_lexicon.main(["--out", lex])
+    with open(lex, "rb") as fin:
+        lex_sha = hashlib.sha256(fin.read()).hexdigest()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        lexicon_coverage.main([])
+    cov_sha = hashlib.sha256(buf.getvalue().strip().encode()).hexdigest()
+    log(f"[phase 10] [lexicon tools] expand_lexicon sha256 {lex_sha} "
+        f"({'equal to' if lex_sha == EXPANDED_LEXICON_SHA256 else 'UNLIKE'} the CPU's); "
+        f"lexicon_coverage {buf.getvalue().strip()[:120]}... sha256 {cov_sha} "
+        f"({'equal to' if cov_sha == COVERAGE_LINE_SHA256 else 'UNLIKE'} the CPU's)")
+    if lex_sha != EXPANDED_LEXICON_SHA256 or cov_sha != COVERAGE_LINE_SHA256:
+        raise AssertionError("the lexicon tools' outputs differ from the CPU's")
+    elapsed("10.5 lexicon tools")
+    return {"mesh": {"calls": calls, "launches": a["launches"]}}
 
 
 def train_step_breakdown(state, on_card, batch) -> None:
@@ -1678,6 +1954,36 @@ def main() -> int:
     log(f"[check] residual_unit / residual_stack fp32 and bf16 at T = {MMA_PADDING_T}, C = 32, 96, 512: "
         f"within tolerance, K3 equal to three K2 launches bit for bit where stack_tile admits the "
         f"width (fp32: C = 32; bf16: C = 32, 96)")
+    # K2 at the redecoder's widths (upsample_initial_channel 1280) for a 3 s
+    # source: C = 640 (fp32: the dilated conv in two passes over the input
+    # channels), 320, 160 and 80 (zero-padded to 96 for the launch), with the
+    # same bits from another tile that fits
+    from flamed_tts_tpu_torch.ops import resunit
+
+    for dtype in (torch.float32, torch.bfloat16):
+        item = 2 if dtype == torch.bfloat16 else 4
+        for t, c in REDECODER_K2_SHAPES:
+            cw = resunit.kernel_width(c)
+            for p, d in zip(stack_args(c, dtype), (1, 3, 9)):
+                tile = pick_tile(t, cw, d, item)
+                if unit_fn(cw, d, tile, item) != unit_smem_bytes(cw, d, tile, item):
+                    raise AssertionError("unit_smem_bytes disagrees with residual_unit.cu")
+                x = rand(1, t, c, dtype=dtype)
+                out = residual_unit_cuda(x, p, d)
+                compare("residual_unit", out, residual_unit_reference(x, p, d),
+                        f"redecoder (1, {t}, {c}) d={d} tile={tile} passes={resunit.unit_passes(cw, item)}")
+                other = 4 if tile != 4 else 20
+                pick = resunit.pick_tile
+                resunit.pick_tile = lambda *a: other
+                try:
+                    same = torch.equal(out, residual_unit_cuda(x, p, d))
+                finally:
+                    resunit.pick_tile = pick
+                if not same:
+                    raise AssertionError(f"residual_unit (1, {t}, {c}) d={d} {dtype}: another tile "
+                                         "gave other bits")
+    log(f"[check] residual_unit fp32 and bf16 at the redecoder's shapes {REDECODER_K2_SHAPES}, "
+        f"d = 1, 3, 9: within tolerance, the same bits at tile 4 (or 20)")
 
     # the fp32 K2 (three TF32 products of split operands) and the fp32 plain
     # version (cuDNN, TF32 off) against the plain version in float64, at one
@@ -1869,7 +2175,8 @@ def main() -> int:
     # 6. the training path: precompute on the card, training at full width,
     # resume and serve; then its kernels at the shapes of one 17 s
     # utterance's analysis and of the trainer run's validation audio
-    runs = {"A": run_a, "B": run_b, **training_phase(kernels, compare, codec, dev)}
+    work = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 6's corpus and configs, read again in phase 10
+    runs = {"A": run_a, "B": run_b, **training_phase(kernels, compare, codec, dev, work)}
     for path in ("precompute", "validation"):
         time_path(path, runs[path]["calls"], torch.float32)
 
@@ -1884,6 +2191,7 @@ def main() -> int:
     runs.update(codec_train_phase(kernels, compare, dev))
     backward["codec_train"] = runs["codec_train"]["backward"]
     time_path("codec_train", runs["codec_train"]["calls"], torch.float32)
+    time_path("redecoder", runs["redecoder"]["calls"], torch.float32)
     log(f"[phase 8] done in {time.perf_counter() - t8:.1f} s (the timing of its shapes included)")
 
     # 9. evaluation; then K1 and K2 at the longest utterance's round trip
@@ -1891,6 +2199,14 @@ def main() -> int:
     runs.update(eval_phase(kernels, codec, dev))
     time_path("eval", runs["eval"]["calls"], torch.float32)
     log(f"[phase 9] done in {time.perf_counter() - t9:.1f} s (the timing of its shapes included)")
+
+    # 10. data and tensor parallelism, the native WAV codec and the G2P
+    # tools; then K1 and K2 at the mesh call's shapes
+    t10 = time.perf_counter()
+    runs.update(parallel_phase(kernels, codec, model, dev, work))
+    time_path("mesh", runs["mesh"]["calls"], torch.float32)
+    log(f"[phase 10] done in {time.perf_counter() - t10:.1f} s (the timing of its shapes included)")
+    shutil.rmtree(work, ignore_errors=True)
 
     notes = {"A": "one utterance's launches on path A", "B": "one utterance's launches on path B",
              "precompute": "one 17 s utterance's analysis in the precompute step (the encoder at "
@@ -1910,7 +2226,13 @@ def main() -> int:
                      "flamed_tts_tpu_torch.dump_decoded (codec_r5, fp32; launches per utterance), at "
                      "the shapes of the longest utterance's (the encoder over its 8 s bucket, the "
                      "decoder over the bucket's frames); an evaluate entry launches the same counts "
-                     "(two encode_prompt calls)"}
+                     "(two encode_prompt calls)",
+             "redecoder": "the FaCodec redecoder at its reference width (upsample_initial_channel "
+                          "1280: K2 at C = 640, 320, 160 and 80) with random weights, synthesizing "
+                          "a 3 s source's codes (240 frames), fp32, one K2 launch a unit",
+             "mesh": "one Flamed.sample_batch call on a 1 x 1 mesh (NCCL): a batch of 3 with "
+                     "prompt wavs, fused, fp32 (codec_r5, one K2 launch a unit; the encoder over "
+                     "the padded prompts, the decoder over the frame bucket, B = 3)"}
     entries = []
     for (name, dtype_name, path), shapes in per.items():
         rows = list(shapes.values())

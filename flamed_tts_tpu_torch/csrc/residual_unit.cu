@@ -20,7 +20,9 @@
 // the tensor cores, what bounds the kernel is (a) shared memory:
 // (2 * TILE + 6d + 24) rows of C values + 16 bytes and 32 KB of weight stages
 // must fit 227 KB, which at C = 512 caps TILE at 52 in bf16 and, in fp32, at
-// 20 for d <= 3 and 4 for d = 9; (b) the weights, 16 C^2 bytes in bf16 and
+// 20 for d <= 3 and 4 for d = 9 (past C = 512 in fp32, h1 holds half the
+// channels at a time, unit_passes in resunit.cuh, and TILE is 20 at C = 640
+// for every d); (b) the weights, 16 C^2 bytes in bf16 and
 // 32 C^2 in fp32, that every block streams once per pass whatever its TILE,
 // so small tiles pay them more often; (c) the number of blocks: a short input
 // at a large TILE leaves most of the 132 SMs idle; and (d) the two snakes
@@ -41,7 +43,7 @@ residual_unit_kernel(const IO* __restrict__ x, UnitParams<IO> u,
   const int t0 = blockIdx.x * tile;
   const int ld = smem_ld(C, (int)sizeof(IO));
   IO* h1 = reinterpret_cast<IO*>(smem);
-  IO* h2 = h1 + (size_t)unit_h1_rows(tile, d) * ld;
+  IO* h2 = h1 + (size_t)unit_h1_values(tile, d, C, (int)sizeof(IO));
   unsigned char* stage =
       reinterpret_cast<unsigned char*>(h2 + (size_t)unit_h2_rows(tile) * ld);
   const size_t batch = (size_t)blockIdx.y * T * C;
@@ -53,8 +55,9 @@ residual_unit_kernel(const IO* __restrict__ x, UnitParams<IO> u,
 
 // itemsize: bytes of one io value (4 or 2).
 extern "C" int residual_unit_smem_bytes(int C, int d, int tile, int itemsize) {
-  return (int)((size_t)(unit_h1_rows(tile, d) + unit_h2_rows(tile)) *
-                   smem_ld(C, itemsize) * itemsize +
+  return (int)(((size_t)unit_h1_values(tile, d, C, itemsize) +
+                (size_t)unit_h2_rows(tile) * smem_ld(C, itemsize)) *
+                   itemsize +
                conv_stage_bytes());
 }
 
@@ -80,7 +83,8 @@ static int launch(const void* x, const void* const* p, void* out, int B, int T,
 // params: host array of 8 device pointers, in the order of UnitParams
 // (log alpha1, log beta1, w1t, b1, log alpha2, log beta2, w2t, b2), the
 // weights in conv_mma's packed order for the io type.  bf16 != 0 selects the
-// bf16 io type.  C must be a multiple of 32 and at most MMA_MAX_C.
+// bf16 io type.  C must be a multiple of 32 and at most MMA_MAX_C (the
+// wrapper zero-pads a width of 16 mod 32 to the next multiple of 32).
 extern "C" int residual_unit_launch(const void* x, const void* const* params,
                                     void* out, int B, int T, int C, int d,
                                     int tile, int bf16, void* stream) {

@@ -67,6 +67,17 @@
 // (snake.cuh) likewise.  So an output element gets the same bits from any
 // tiling, which is what lets the fused stack equal three single-unit
 // launches exactly.
+//
+// Past MMA_PASS_BYTES of values a row (fp32 at C > 512: the FaCodec
+// redecoder's C = 640 at its reference width), h1's halo of 6d + 12 rows
+// leaves no tile room in 227 KB, so the dilated conv reduces over its input
+// channels in unit_passes() passes: each pass holds its slice of snake 1's
+// rows in h1, sums its slabs over k, then ci, and keeps the running sums as
+// fp32 in h2 for the next pass (CONV_SUMS_OUT / CONV_SUMS_IN), which adds on
+// to them exactly as if the loop had not stopped.  The order there is pass,
+// k, ci: a function of (C, io type) alone, so the bits still do not depend
+// on the tile.  At C <= 512 (and for every bf16 width up to MMA_MAX_C)
+// there is one pass and the order is the one above.
 #pragma once
 
 #include "snake.cuh"
@@ -76,12 +87,25 @@
 #define MMA_PAD_BYTES 16       // added to a shared-memory row
 #define MMA_STAGE_BYTES 16384  // one weight stage of conv_mma
 #define MMA_STAGES 2           // stages in its ring
-#define MMA_MAX_C 512          // widest conv whose pass fits a stage
+#define MMA_MAX_C 640          // widest conv the kernels take (the redecoder's)
+#define MMA_PASS_BYTES 2048    // widest slice of h1 one pass of the dilated conv holds
+
+// conv_mma's running sums: start from the fp32 sums in `out` (CONV_SUMS_IN),
+// and store them there as they are, with no bias, rounding or residual
+// (CONV_SUMS_OUT); both for the passes of a split reduction, fp32 io only.
+#define CONV_SUMS_IN 1
+#define CONV_SUMS_OUT 2
 
 // Values from one shared-memory row to the next for an io type of
 // `itemsize` bytes, and the bytes of the weight stages.
 __host__ __device__ inline int smem_ld(int C, int itemsize) {
   return C + MMA_PAD_BYTES / itemsize;
+}
+// Passes of the dilated conv's reduction over input channels: 1 up to
+// MMA_PASS_BYTES of values a row (fp32 C <= 512, bf16 C <= 1024), else 2
+// (C is at most MMA_MAX_C), each over C / passes channels.
+__host__ __device__ inline int unit_passes(int C, int itemsize) {
+  return (C * itemsize + MMA_PASS_BYTES - 1) / MMA_PASS_BYTES;
 }
 __host__ __device__ inline int conv_stage_bytes() {
   return MMA_STAGES * MMA_STAGE_BYTES;
@@ -212,15 +236,18 @@ struct Pair<__nv_bfloat16> {
   using type = __nv_bfloat162;
 };
 
-// acc[r][co] = sum_{k<K} sum_ci w[k][ci][co] * in[(r + k * dil) * in_ld + ci]
+// acc[r][co] = sum_{k<K} sum_{ci<C_in} w[k][ci][co] * in[(r + k * dil) * in_ld + ci]
 // for r in [0, R), co in [0, C), fp32 sums; y = IO(acc) + bias[co] as an IO
 // add; without residual out[r * out_ld + co] = y for every row, with it
 // out = residual[r * res_ld + co] + y (an IO add) for rows in [r_lo, r_hi)
 // only (the others lie outside [0, T)).  out may be residual (an element is
 // read, then written, by one thread).
 //
+// With `sums` (CONV_SUMS_IN / CONV_SUMS_OUT, no residual) acc starts from,
+// or is stored as, the fp32 sums in out (fp32 io only).
+//
 // in: shared memory, rows 16-byte aligned.  wp: the weights in device memory
-// in the packed order [k * C / KS + ci / KS][co / 16][lane][16 bytes], where
+// in the packed order [k * C_in / KS + ci / KS][co / 16][lane][16 bytes], where
 // KS = 32 / sizeof(IO) input channels (16 in bf16, 8 in fp32) make one K
 // step.  The 16 bytes are the lane's B fragments of the two n8 tiles
 // h = 0, 1 of the block's 16 output channels, co = 16 * (co / 16) + 8 * h +
@@ -236,7 +263,9 @@ struct Pair<__nv_bfloat16> {
 // C = 32 conv of 112 rows is 2 items of 64 rows, but 7 of 16.  MT is the one
 // that makes passes * (MT + 1) least, an item's fixed cost (its B fragments,
 // the stage's barrier) taken as one tile's.  A pass gives each warp of the
-// block one item and streams the slabs' columns that the pass needs
+// block one item and streams the slabs' columns that the pass needs (the
+// channel groups of its items, consecutive modulo C / 32, so at most one a
+// warp: 16 KB for 16 warps, which is one stage whatever C is)
 // through the ring of NS = MMA_STAGES stages, NS - 1 of them in flight while
 // one is multiplied.  (On an H100 four stages measured no faster than two in
 // bf16, and their 32 KB more cost the small widths a block per SM.)  Rows of
@@ -244,10 +273,12 @@ struct Pair<__nv_bfloat16> {
 // block of THREADS threads calls it; `in` must be visible to the block on
 // entry, and the stores are not followed by a barrier.
 template <typename IO, int K, int THREADS>
-__device__ void conv_mma(const IO* in, int in_ld, const IO* __restrict__ wp,
+__device__ void conv_mma(const IO* in, int in_ld, int C_in,
+                         const IO* __restrict__ wp,
                          const IO* __restrict__ bias, IO* out, int out_ld,
                          const IO* residual, int res_ld, int R, int r_lo,
-                         int r_hi, int C, int dil, unsigned char* stage) {
+                         int r_hi, int C, int dil, unsigned char* stage,
+                         int sums = 0) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -270,7 +301,7 @@ __device__ void conv_mma(const IO* in, int in_ld, const IO* __restrict__ wp,
   }
   const int item_rows = 16 * item_mt;
   const int n_items = ((R + item_rows - 1) / item_rows) * n_ng;
-  const int cb = C / KS;  // slabs per tap
+  const int cb = C_in / KS;  // slabs per tap
   const int n_slabs = K * cb;
   if (!residual) {
     r_lo = 0;
@@ -281,15 +312,12 @@ __device__ void conv_mma(const IO* in, int in_ld, const IO* __restrict__ wp,
   const unsigned row_bytes = (unsigned)in_ld * (unsigned)sizeof(IO);
 
   for (int item0 = 0; item0 < n_items; item0 += n_warps) {
-    // the channel groups this pass needs: a range when its items share one
-    // row group, else all
-    const int last = min(item0 + n_warps, n_items) - 1;
-    int j_lo = 0, j_hi = n_ng - 1;
-    if (item0 / n_ng == last / n_ng) {
-      j_lo = item0 % n_ng;
-      j_hi = last % n_ng;
-    }
-    const int piece = (j_hi - j_lo + 1) * 1024;  // bytes of a slab it needs
+    // the channel groups this pass needs: its items' groups are consecutive
+    // modulo n_ng, from j_lo on (all of them once it has n_ng items)
+    const int count = min(n_warps, n_items - item0);
+    const int n_pg = min(count, n_ng);
+    const int j_lo = count >= n_ng ? 0 : item0 % n_ng;
+    const int piece = n_pg * 1024;  // bytes of a slab it needs
     const int per = piece >> 4;                  // 16-byte copies in them
     const int ks = MMA_STAGE_BYTES / piece;      // slabs per stage
     const int n_stages = (n_slabs + ks - 1) / ks;
@@ -313,6 +341,28 @@ __device__ void conv_mma(const IO* in, int in_ld, const IO* __restrict__ wp,
       for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+    using P = typename Pair<IO>::type;
+    // lane l holds rows l / 4 and l / 4 + 8, columns 2 * (l % 4) + {0, 1}
+    // of each 16 x 8 tile
+    const int g = lane >> 2;
+    const int q = lane & 3;
+    if (active && (sums & CONV_SUMS_IN)) {
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = r0 + mt * 16 + half * 8 + g;
+          if (mt >= n_mt || r >= R) continue;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            const P v = *reinterpret_cast<const P*>(
+                out + (size_t)r * out_ld + ng * 32 + nt * 8 + q * 2);
+            acc[mt][nt][half * 2] = to_f(v.x);
+            acc[mt][nt][half * 2 + 1] = to_f(v.y);
+          }
+        }
+      }
+    }
 
     // this thread's copies of a stage, the same in every stage: where in the
     // pass's part of the slabs (source) and in the stage (destination)
@@ -322,7 +372,9 @@ __device__ void conv_mma(const IO* in, int in_ld, const IO* __restrict__ wp,
       const int i = tid + j * THREADS;
       cp_sl[j] = i / per;
       const int off = (i - cp_sl[j] * per) * 16;
-      cp_src[j] = cp_sl[j] * 32 * C + j_lo * 1024 + off;
+      const int jj = j_lo + (off >> 10);  // the channel group, cyclically
+      cp_src[j] = cp_sl[j] * 32 * C + (jj < n_ng ? jj : jj - n_ng) * 1024 +
+                  (off & 1023);
       cp_dst[j] = cp_sl[j] * piece + off;
     }
     // copies stage st into its place in the ring; always commits a group
@@ -357,7 +409,8 @@ __device__ void conv_mma(const IO* in, int in_ld, const IO* __restrict__ wp,
       if (active) {
         const int nsl = min(ks, n_slabs - st * ks);
         const unsigned char* b = stage + (st % NS) * MMA_STAGE_BYTES +
-                                 (ng - j_lo) * 1024 + lane * 16;
+                                 (ng >= j_lo ? ng - j_lo : ng - j_lo + n_ng) * 1024 +
+                                 lane * 16;
         for (int sl = 0; sl < nsl; ++sl, b += piece) {
           const BFrag<IO> bf(*reinterpret_cast<const uint4*>(b),
                              *reinterpret_cast<const uint4*>(b + 512));
@@ -380,11 +433,6 @@ __device__ void conv_mma(const IO* in, int in_ld, const IO* __restrict__ wp,
     }
 
     if (active) {
-      // lane l holds rows l / 4 and l / 4 + 8, columns 2 * (l % 4) + {0, 1}
-      // of each 16 x 8 tile
-      using P = typename Pair<IO>::type;
-      const int g = lane >> 2;
-      const int q = lane & 3;
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
 #pragma unroll
@@ -394,8 +442,14 @@ __device__ void conv_mma(const IO* in, int in_ld, const IO* __restrict__ wp,
 #pragma unroll
           for (int nt = 0; nt < 4; ++nt) {
             const int co = ng * 32 + nt * 8 + q * 2;
-            const P bv = *reinterpret_cast<const P*>(bias + co);
             P yv;
+            if (sums & CONV_SUMS_OUT) {  // the running sums, as they are
+              yv.x = from_f<IO>(acc[mt][nt][half * 2]);
+              yv.y = from_f<IO>(acc[mt][nt][half * 2 + 1]);
+              *reinterpret_cast<P*>(out + (size_t)r * out_ld + co) = yv;
+              continue;
+            }
+            const P bv = *reinterpret_cast<const P*>(bias + co);
             yv.x = io_add<IO>(from_f<IO>(acc[mt][nt][half * 2]), bv.x);
             yv.y = io_add<IO>(from_f<IO>(acc[mt][nt][half * 2 + 1]), bv.y);
             if (residual) {
@@ -413,7 +467,8 @@ __device__ void conv_mma(const IO* in, int in_ld, const IO* __restrict__ wp,
 }
 
 // Parameters of one unit: w1t (7 taps) and w2t (1 tap) in conv_mma's packed
-// order for IO.  The snakes' log-scale alpha / beta stay fp32.
+// order for IO; w1t pass by pass where unit_passes(C) > 1 (the packed
+// weights of each pass's input channels, one after the other).  The snakes' log-scale alpha / beta stay fp32.
 template <typename IO>
 struct UnitParams {
   const float* la1;
@@ -430,19 +485,31 @@ struct UnitParams {
 // h1 (and h3 in its place) and h2.
 __host__ __device__ inline int unit_h1_rows(int n, int d) { return n + 6 * d + 12; }
 __host__ __device__ inline int unit_h2_rows(int n) { return n + 12; }
+// Values of h1 in K2's shared memory: unit_h1_rows of one pass's slice of
+// the channels, or the n full rows of h3 that take its place, whichever is
+// more.  With one pass, unit_h1_rows(n, d) * smem_ld(C).
+__host__ __device__ inline int unit_h1_values(int n, int d, int C,
+                                              int itemsize) {
+  const int a = unit_h1_rows(n, d) * smem_ld(C / unit_passes(C, itemsize), itemsize);
+  const int b = n * smem_ld(C, itemsize);
+  return a > b ? a : b;
+}
 
 // The unit's output rows [a, a + n) (absolute row numbers; a may be
 // negative and a + n may pass T).  src reads an input row in [0, T);
 // res and dst point at the element (row a, channel 0) of the input (for the
 // residual add) and of the output, with row strides res_ld and dst_ld; only
 // rows inside [0, T) are read from res and stored to dst.  h1 holds
-// unit_h1_rows(n, d) rows of ld values, h2 unit_h2_rows(n), stage
-// conv_stage_bytes().  The whole block of THREADS threads calls it; it does
-// not end on a barrier.
+// unit_h1_values(n, d, C, sizeof(IO)) values, h2 unit_h2_rows(n) rows of ld
+// values, stage conv_stage_bytes().  The whole block of THREADS threads
+// calls it; it does not end on a barrier.
 //   1. snake1 over rows [a - 3d - 6, a + n + 3d + 6) into h1, zero outside
 //      [0, T) (the conv's zero pad); the snake's own replicate pads clamp to
 //      [0, T) inside snake_rows.
-//   2. conv7 into h2 for rows [a - 6, a + n + 6).
+//   2. conv7 into h2 for rows [a - 6, a + n + 6).  Past MMA_PASS_BYTES a
+//      row, 1 and 2 run once per pass over a slice of the input channels
+//      (h1 then holds the slice, rows ldp values apart), the sums carried
+//      in h2 from one pass to the next.
 //   3. snake2 of h2 into h3 (h1's space) for rows [a, a + n); its replicate
 //      pads clamp to [0, T), which stays inside h2's rows.
 //   4. conv1, bias and the residual add.
@@ -451,15 +518,26 @@ __device__ void unit_rows(const Src& src, const IO* res, int res_ld, IO* dst,
                           int dst_ld, int a, int n, int T, int C, int d,
                           const UnitParams<IO>& u, IO* h1, IO* h2, int ld,
                           unsigned char* stage) {
-  snake_rows<THREADS / 32>(src, T, a - 3 * d - 6, unit_h1_rows(n, d), 0, C,
-                           u.la1, u.lb1, h1, ld);
-  conv_mma<IO, 7, THREADS>(h1, ld, u.w1t, u.b1, h2, ld, nullptr, 0,
-                           unit_h2_rows(n), 0, 0, C, d, stage);
+  const int np = unit_passes(C, (int)sizeof(IO));
+  const int cp = C / np;                      // input channels of a pass
+  const int ldp = smem_ld(cp, (int)sizeof(IO));
+  for (int p = 0; p < np; ++p) {
+    // every warp is done reading the last pass's slice from h1
+    if (p) __syncthreads();
+    // channels [p cp, (p + 1) cp) of snake 1, stored from h1's column 0
+    snake_rows<THREADS / 32>(src, T, a - 3 * d - 6, unit_h1_rows(n, d), p * cp,
+                             (p + 1) * cp, u.la1, u.lb1, h1 - p * cp, ldp);
+    conv_mma<IO, 7, THREADS>(h1, ldp, cp, u.w1t + (size_t)p * 7 * cp * C, u.b1,
+                             h2, ld, nullptr, 0, unit_h2_rows(n), 0, 0, C, d,
+                             stage,
+                             (p ? CONV_SUMS_IN : 0) |
+                                 (p < np - 1 ? CONV_SUMS_OUT : 0));
+  }
   __syncthreads();
   IO* h3 = h1;
   snake_rows<THREADS / 32>(SharedRows<IO>{h2, ld, a - 6}, T, a, n, 0, C, u.la2,
                            u.lb2, h3, ld);
-  conv_mma<IO, 1, THREADS>(h3, ld, u.w2t, u.b2, dst, dst_ld, res, res_ld, n,
+  conv_mma<IO, 1, THREADS>(h3, ld, C, u.w2t, u.b2, dst, dst_ld, res, res_ld, n,
                            max(0, -a), min(n, T - a), C, 1, stage);
 }
 

@@ -237,12 +237,17 @@ class Flamed:
                      temp_durgen: float = 0.3, temp_denoiser: float = 0.3,
                      nsteps_durgen: int = 64, nsteps_denoiser: int = 64,
                      noise: Optional[Dict] = None, seed: Optional[int] = None,
-                     fused: bool = True) -> Dict:
+                     fused: bool = True, mesh=None) -> Dict:
         """Batched sampling: phonemes (B, L) + src_lens, and either prompts
         (B, n_q, P) + timbres (B, 256) (+ prompt_lens) or prompt_wav (B, T)
         + prompt_frames.  Arrays are channel-last: ``latents`` (B, F, 256),
         ``prior_logits`` (B, n_q, F, V + 1).  With a codec the wav is
-        synthesized in the same call: (B, F * hop, 1) float32 numpy."""
+        synthesized in the same call: (B, F * hop, 1) float32 numpy.
+
+        ``mesh`` (a ``parallel.mesh.make_mesh`` mesh; every rank calls with
+        the whole batch and the same seed) splits the batch over its data
+        axis, throughput mode: the result is the whole batch's on every
+        rank (``runtime/sampler.py``)."""
         start_time = time.time()
         if prompt_wav is None and prompts is None:
             raise ValueError("provide either prompts(+timbres) or prompt_wav")
@@ -256,7 +261,7 @@ class Flamed:
             self.device, nsteps_durgen=nsteps_durgen, nsteps_denoiser=nsteps_denoiser,
             temp_durgen=temp_durgen, temp_denoiser=temp_denoiser, vocab_pad=self.vocab_size,
             codec=codec, noise=noise, generator=self._generator(seed), fused=fused,
-            prompt_wav=prompt_wav, prompt_frames=prompt_frames)
+            prompt_wav=prompt_wav, prompt_frames=prompt_frames, mesh=mesh)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         out["time"] = time.time() - start_time

@@ -14,6 +14,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import Tensor
 
+from flamed_tts_tpu_torch.ops.dropout import BatchRows, denominator, draw
+
 
 def durations_from_flow(x: Tensor) -> Tensor:
     """log-space flow state -> integer frame counts (as float)."""
@@ -39,21 +41,25 @@ def pva_sample(prior, enc_out: Tensor, src_mask: Tensor, dur_noise: Tensor,
 def pva_loss(prior, enc_out: Tensor, src_mask: Tensor, phone_dur: Tensor, sil_dur: Tensor,
              sigma_min: float, generator: Optional[torch.Generator] = None,
              t: Optional[Tensor] = None, noise: Optional[Tuple[Tensor, Tensor]] = None,
-             loss_norm: str = "masked") -> Dict[str, Tensor]:
+             loss_norm: str = "masked", rows: Optional[BatchRows] = None) -> Dict[str, Tensor]:
     """OT-CFM losses of the duration and silence flows over log(dur + 1).
     ``t`` (B, 1) uniform and ``noise`` (duration, silence), each (B, L)
     standard normal, are drawn from ``generator`` (t first) where not given.
 
     ``loss_norm="masked"`` takes the MSE over valid positions;
-    ``"reference"`` over the whole padded (B, L) buffer."""
+    ``"reference"`` over the whole padded (B, L) buffer.  With ``rows``
+    (this rank's rows of a batch split over a data group) the draws are
+    the whole batch's, sliced, and the denominators the whole batch's: a
+    loss is this rank's share, and the group's sum is the loss."""
     b, l = phone_dur.shape
     dev = enc_out.device
     if t is None:
-        t = torch.rand((b, 1), generator=generator, device=dev)
+        t = draw(torch.rand, (b, 1), generator, dev, rows)
     if noise is None:
-        noise = tuple(torch.randn((b, l), generator=generator, device=dev) for _ in range(2))
+        noise = tuple(draw(torch.randn, (b, l), generator, dev, rows) for _ in range(2))
     valid = (~src_mask).float()
-    denom = float(b * l) if loss_norm == "reference" else torch.clamp(valid.sum(), min=1.0)
+    count = torch.tensor(float(b * l), device=dev) if loss_norm == "reference" else valid.sum()
+    denom = denominator(count, rows)
 
     def interpolate(target, x0):
         x1 = torch.log(target.float() + 1.0)

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from flamed_tts_tpu_torch.ops.convnext import AdaLNResBlock, FinalLayer, TimestepEmbedder
+from flamed_tts_tpu_torch.ops.dropout import BatchRows, denominator, draw
 from flamed_tts_tpu_torch.ops.norms import MaskedGroupNorm
 
 
@@ -73,16 +74,30 @@ class SimpleMLPAdaLN(nn.Module):
             self.add_module(f"res_block_{i}",
                             AdaLNResBlock(model_channels, kernel, padding, expand, groups))
         self.final_layer = FinalLayer(model_channels, out_channels, kernel, padding, expand, groups)
+        # set by parallel.sharding.shard_params where the parameters are split
+        # over a mesh's model axis: the forward is then the tensor-parallel one
+        self.tp = None
 
     def blocks(self) -> List[nn.Module]:
         return [getattr(self, f"res_block_{i}") for i in range(self.num_res_blocks)]
 
+    def _embed(self, t: Tensor, spk: Tensor):
+        if self.tp is not None:
+            from flamed_tts_tpu_torch.parallel import tensor_parallel
+            return tensor_parallel.time_embed(self, t), tensor_parallel.cond_embed(self, spk)
+        return self.time_embed(t), self.cond_embed(spk)
+
+    def _mods(self, y: Tensor) -> List[Tensor]:
+        if self.tp is not None:
+            from flamed_tts_tpu_torch.parallel import tensor_parallel
+            return tensor_parallel.mods(self, y)
+        return [blk.mods(y) for blk in self.blocks()] + [self.final_layer.mods(y)]
+
     def compute_mods(self, t_grid: Tensor, spk: Tensor) -> List[Tensor]:
         """Every step's adaLN modulations at once: t_grid (S,), spk (B, spk_dim)
         -> per block (S, B, 1, 6C), final layer (S, B, 1, 5C)."""
-        t_emb = self.time_embed(t_grid.float()[:, None])        # (S, 1, C)
-        y = t_emb[:, None, :, :] + self.cond_embed(spk)[None, :, None, :]
-        return [blk.mods(y) for blk in self.blocks()] + [self.final_layer.mods(y)]
+        t_emb, c_emb = self._embed(t_grid.float()[:, None], spk)  # (S, 1, C), (B, C)
+        return self._mods(t_emb[:, None, :, :] + c_emb[None, :, None, :])
 
     def mods_at(self, t: Tensor, spk: Tensor) -> List[Tensor]:
         """Modulations at times ``t`` broadcastable to (B, L) (a scalar, (B,)
@@ -90,11 +105,14 @@ class SimpleMLPAdaLN(nn.Module):
         t = t.float()
         while t.dim() < 2:
             t = t[None] if t.dim() == 0 else t[:, None]
-        y = self.time_embed(t) + self.cond_embed(spk)[:, None, :]
-        return [blk.mods(y) for blk in self.blocks()] + [self.final_layer.mods(y)]
+        t_emb, c_emb = self._embed(t, spk)
+        return self._mods(t_emb + c_emb[:, None, :])
 
     def forward(self, x: Tensor, mods: List[Tensor], pad_mask: Optional[Tensor] = None) -> Tensor:
         """One denoiser call with one step's modulations (each (B, 1, kC))."""
+        if self.tp is not None:
+            from flamed_tts_tpu_torch.parallel import tensor_parallel
+            return tensor_parallel.forward(self, x, mods, pad_mask)
         x = self.proj_in(x)
         for blk, m in zip(self.blocks(), mods):
             x = blk(x, m, pad_mask)
@@ -144,7 +162,7 @@ def prob_sample(prob: ProbGenerator, prior_hiddens: Tensor, spk: Tensor, pad_mas
 def prob_loss(prob: ProbGenerator, x1: Tensor, prior_hiddens: Tensor, spk: Tensor,
               pad_mask: Tensor, sigma_min: float, generator: Optional[torch.Generator] = None,
               t: Optional[Tensor] = None, noise: Optional[Tensor] = None,
-              loss_norm: str = "masked") -> Dict[str, Tensor]:
+              loss_norm: str = "masked", rows: Optional[BatchRows] = None) -> Dict[str, Tensor]:
     """fm_loss + anchor_loss of the flow from ``noise + cond`` to the latents
     ``x1`` (B, L, target_dim), at a time per frame.  ``t`` (B, L, 1) uniform
     and ``noise`` (B, L, target_dim) standard normal are drawn from
@@ -153,20 +171,20 @@ def prob_loss(prob: ProbGenerator, x1: Tensor, prior_hiddens: Tensor, spk: Tenso
     ``loss_norm="masked"`` takes means over the valid positions;
     ``"reference"`` over the whole padded (B, L, C) buffer, and the anchor
     then compares against the raw ``x1`` buffer (zero-padded by the
-    collator)."""
+    collator).  ``rows``: as in ``pva_loss``."""
     cond = prob.encode_condition(prior_hiddens, pad_mask)
     b, l, c = cond.shape
     if t is None:
-        t = torch.rand((b, l, 1), generator=generator, device=cond.device)
+        t = draw(torch.rand, (b, l, 1), generator, cond.device, rows)
     if noise is None:
-        noise = torch.randn(cond.shape, generator=generator, device=cond.device)
+        noise = draw(torch.randn, cond.shape, generator, cond.device, rows)
     x0 = noise + cond
     xt = t * x1 + (1.0 - (1.0 - sigma_min) * t) * x0
     valid = (~pad_mask)[:, :, None].float()
     if loss_norm == "reference":
-        denom = float(b * l * c)
+        denom = denominator(torch.tensor(float(b * l * c), device=cond.device), rows)
     else:
-        denom = torch.clamp(valid.sum() * c, min=1.0)
+        denom = denominator(valid.sum() * c, rows)
     dx = (x1 - (1.0 - sigma_min) * x0) * valid
     vt = prob.denoise(xt, t[..., 0], spk, pad_mask) * valid
     fm_loss = ((vt - dx) ** 2).sum() / denom

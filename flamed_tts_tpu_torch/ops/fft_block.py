@@ -43,7 +43,7 @@ class MultiHeadAttention(nn.Module):
         if attn_mask is not None:
             m = attn_mask[:, None, None, :] if attn_mask.dim() == 2 else attn_mask[:, None]
             scores = scores.masked_fill(m, _NEG_INF)
-        out = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(b, l, -1)
+        out = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(b, l, self.n_head * self.d_v)
         return self.layer_norm(self.dropout(self.fc(out)) + x)
 
 

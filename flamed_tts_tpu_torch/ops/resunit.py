@@ -23,6 +23,17 @@ whose backward is the plain chain's VJP (``kernels.plain_vjp``); they read
 the live conv weights then (``prepared`` must be None), so the gradient
 reaches the weights the forward used.
 
+K2 takes every width that is a multiple of 16 up to 640 (``MMA_MAX_C``, the
+FaCodec redecoder's first block at its reference width).  The kernel itself
+takes multiples of 32; a width of 16 mod 32 (the redecoder's last block,
+C = 80) is zero-padded here to the next multiple of 32: x, the snakes' log
+alpha / beta and the conv weights and biases get zero channels, which the
+snakes map to exact zeros and the convs multiply by zero weights, so the
+real channels' sums are those of the unpadded conv and the pad is cut off
+the output.  Past 512 channels in float32 the kernel splits the dilated
+conv's reduction over input channels into passes (``unit_passes``; its
+weights packed pass by pass, ``pack_mma_weights(w, passes)``).
+
 The io type is that of ``x`` (float32 or bfloat16) and the conv weights and
 biases must have it too.  Sums are float32; in bfloat16 a value is rounded
 where the kernels round it: after each snake, each conv sum before its bias
@@ -38,6 +49,7 @@ from functools import lru_cache
 from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from flamed_tts_tpu_torch import kernels
 from flamed_tts_tpu_torch.ops.conv1d import conv1d
@@ -49,7 +61,10 @@ MMA_PAD_BYTES = 16  # added to a shared-memory row (MMA_PAD_BYTES in resunit.cuh
 MMA_STEP_BYTES = 32  # of an activation row that one K step multiplies: 16 bfloat16 or 8 float32 channels
 MMA_STAGE_BYTES = 16384  # one weight stage (MMA_STAGE_BYTES in resunit.cuh)
 MMA_STAGES = 2  # weight stages of the convs (MMA_STAGES in resunit.cuh)
-MMA_MAX_C = 512  # widest conv the kernels take (MMA_MAX_C in resunit.cuh)
+MMA_MAX_C = 640  # widest conv the kernels take (MMA_MAX_C in resunit.cuh)
+MMA_PASS_BYTES = 2048  # widest slice of h1 one pass of the dilated conv holds (resunit.cuh)
+KERNEL_C_MULTIPLE = 32  # the kernels' widths; K2's wrapper zero-pads a width of 16 mod 32 to it
+UNIT_C_MULTIPLE = 16  # the widths K2's wrapper takes
 MMA_LONG_TILE = 100  # K2's tile for a long input: the fastest of the bfloat16 sweep at every long shape
 MMA_SHORT_TILES = (20, 4)  # for an input too short to give the SMs a block each at a larger one: the first that fits
 ONE_BLOCK_ROW_BYTES = 512  # from rows this long on the kernels run 512 threads a block, one block an SM
@@ -78,7 +93,7 @@ def residual_stack_reference(x: torch.Tensor, units, dilations: Sequence[int] = 
     return x
 
 
-def pack_mma_weights(w: torch.Tensor) -> torch.Tensor:
+def pack_mma_weights(w: torch.Tensor, passes: int = 1) -> torch.Tensor:
     """Conv weights (C_out, C_in, K) -> (K * C_in / S, C_out / 16, 32, V), the
     order in which the kernels read them.  S = 16 (bfloat16) or 8 (float32)
     input channels make one K step of the mma, and a lane's V = 8 or 4 values
@@ -89,12 +104,17 @@ def pack_mma_weights(w: torch.Tensor) -> torch.Tensor:
     splits into TF32 halves): ci % S = S / 2 * reg + R * (l % 4) + {0 .. R - 1},
     that is 2 (l % 4) + {0, 1, 8, 9} for m16n8k16 and l % 4 + {0, 4} for
     m16n8k8.  A permutation of the values; ``unpack_mma_weights`` is its
-    inverse."""
+    inverse.  With ``passes`` > 1 the input channels are cut into that many
+    equal slices, each packed so, one after the other: the order in which
+    the dilated conv reads them when it reduces in passes."""
     c_out, c_in, k = w.shape
     if w.dtype not in kernels.IO_DTYPES:
         raise ValueError(f"pack_mma_weights takes float32 or bfloat16, got {w.dtype}")
-    if c_out % 16 or c_in % 16:
-        raise ValueError(f"pack_mma_weights needs widths that are multiples of 16, got {tuple(w.shape)}")
+    if c_out % 16 or c_in % (16 * passes):
+        raise ValueError(f"pack_mma_weights needs widths that are multiples of 16 "
+                         f"(a slice's too), got {tuple(w.shape)} in {passes} passes")
+    if passes > 1:
+        return torch.cat([pack_mma_weights(part) for part in w.chunk(passes, dim=1)])
     r = 4 // w.element_size()
     # [k][ci][co] with ci = 8 r cib + 4 r reg + r q + half and co = 16 n16 + 8 h + g
     t = w.permute(2, 1, 0).reshape(k, c_in // (8 * r), 2, 4, r, c_out // 16, 2, 8)
@@ -102,8 +122,10 @@ def pack_mma_weights(w: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 1, 5, 7, 3, 6, 2, 4).reshape(k * (c_in // (8 * r)), c_out // 16, 32, 4 * r).contiguous()
 
 
-def unpack_mma_weights(packed: torch.Tensor, k: int) -> torch.Tensor:
+def unpack_mma_weights(packed: torch.Tensor, k: int, passes: int = 1) -> torch.Tensor:
     """The inverse of ``pack_mma_weights``: back to (C_out, C_in, K)."""
+    if passes > 1:
+        return torch.cat([unpack_mma_weights(part, k) for part in packed.chunk(passes)], dim=1)
     slabs, n16 = packed.shape[:2]
     cib, r = slabs // k, 4 // packed.element_size()
     t = packed.reshape(k, cib, n16, 8, 4, 2, 2, r).permute(0, 1, 6, 4, 7, 2, 5, 3)
@@ -116,13 +138,51 @@ def packed_shape(c: int, k: int, dtype: torch.dtype) -> tuple:
     return (k * c * itemsize // MMA_STEP_BYTES, c // 16, 32, 16 // itemsize)
 
 
+def unit_passes(c: int, itemsize: int) -> int:
+    """Passes of K2's dilated-conv reduction over input channels at width
+    ``c`` (unit_passes in resunit.cuh): 1 up to MMA_PASS_BYTES of values a
+    row (float32 C <= 512, bfloat16 C <= 1024), else 2."""
+    return -(-c * itemsize // MMA_PASS_BYTES)
+
+
+def kernel_width(c: int) -> int:
+    """The width K2 launches at for a unit of width ``c``: ``c`` rounded up
+    to a multiple of 32.  Raises for a width K2 does not take."""
+    if c <= 0 or c % UNIT_C_MULTIPLE or c > MMA_MAX_C:
+        raise ValueError(f"residual_unit kernel takes C a multiple of {UNIT_C_MULTIPLE} "
+                         f"up to {MMA_MAX_C}, got C={c}")
+    return -(-c // KERNEL_C_MULTIPLE) * KERNEL_C_MULTIPLE
+
+
+def pad_unit(p: Dict, c_pad: int) -> Dict:
+    """A unit's parameters zero-padded from width C to ``c_pad`` channels:
+    the snakes' log alpha / beta, both convs' weights (input and output
+    channels) and biases."""
+    c = p["conv1"]["w"].shape[0]
+    if c_pad == c:
+        return p
+    n = c_pad - c
+    out: Dict = {}
+    for act in ("act1", "act2"):
+        out[act] = {k: F.pad(p[act][k], (0, n)) for k in ("alpha", "beta")}
+    for conv in ("conv1", "conv2"):
+        out[conv] = {"w": F.pad(p[conv]["w"], (0, 0, 0, n, 0, n)), "b": F.pad(p[conv]["b"], (0, n))}
+    return out
+
+
 def prepare_unit(p: Dict) -> Optional[Dict]:
     """The kernel-layout weights of one unit, {"w1", "w2"}, to hand to
-    ``residual_unit`` / ``residual_stack`` as ``prepared`` beside ``p``;
-    None for a width the kernels do not take (not a multiple of 32)."""
-    if p["conv1"]["w"].shape[0] % 32:
+    ``residual_unit`` / ``residual_stack`` as ``prepared`` beside ``p``: at
+    ``kernel_width``, zero-padded where that is wider, the dilated conv's
+    packed pass by pass.  None for a width K2 does not take."""
+    c = p["conv1"]["w"].shape[0]
+    try:
+        c_pad = kernel_width(c)
+    except ValueError:
         return None
-    return {"w1": pack_mma_weights(p["conv1"]["w"]), "w2": pack_mma_weights(p["conv2"]["w"])}
+    q = pad_unit(p, c_pad)
+    passes = unit_passes(c_pad, q["conv1"]["w"].element_size())
+    return {"w1": pack_mma_weights(q["conv1"]["w"], passes), "w2": pack_mma_weights(q["conv2"]["w"])}
 
 
 def _row_bytes(c: int, itemsize: int) -> int:
@@ -132,9 +192,12 @@ def _row_bytes(c: int, itemsize: int) -> int:
 
 def unit_smem_bytes(c: int, dilation: int, tile: int, itemsize: int) -> int:
     """Shared memory of one K2 block (residual_unit_smem_bytes in
-    residual_unit.cu): h1 (tile + 6 d + 12 rows), h2 (tile + 12) and the
-    weight stages."""
-    return (2 * tile + 6 * dilation + 24) * _row_bytes(c, itemsize) + MMA_STAGES * MMA_STAGE_BYTES
+    residual_unit.cu): h1 (tile + 6 d + 12 rows of one pass's channels, or
+    the tile's rows of h3 at full width where that is more), h2 (tile + 12
+    rows) and the weight stages."""
+    h1 = max((tile + 6 * dilation + 12) * _row_bytes(c // unit_passes(c, itemsize), itemsize),
+             tile * _row_bytes(c, itemsize))
+    return h1 + (tile + 12) * _row_bytes(c, itemsize) + MMA_STAGES * MMA_STAGE_BYTES
 
 
 @lru_cache(maxsize=None)
@@ -150,8 +213,10 @@ def pick_tile(t_len: int, c: int, dilation: int, itemsize: int = 4) -> int:
     C = 512, whose tiles stop at 52-68 in bfloat16 and 20 in float32), 20
     rows spread the input over the most blocks, and where 20 do not fit
     (float32, C = 512, d = 9) 4 rows.  tools/torch_sweep_unit_tile.py times
-    every tile beside this choice."""
-    if c > MMA_MAX_C or unit_smem_bytes(c, dilation, MMA_SHORT_TILES[-1], itemsize) > SMEM_LIMIT:
+    every tile beside this choice.  Past C = 512 in float32 the dilated conv
+    holds half the channels at a time (``unit_passes``), which gives 20
+    rows at C = 640 at every d."""
+    if c > MMA_MAX_C or c % KERNEL_C_MULTIPLE or unit_smem_bytes(c, dilation, MMA_SHORT_TILES[-1], itemsize) > SMEM_LIMIT:
         raise ValueError(f"residual_unit kernel: C={c}, d={dilation} does not fit in shared memory")
     room = SMEM_LIMIT if c * itemsize >= ONE_BLOCK_ROW_BYTES else SM_SMEM_BYTES // 2 - 1024
     for tile in range(MMA_LONG_TILE, MMA_SHORT_TILES[0], -MMA_M):
@@ -181,7 +246,7 @@ def stack_tile(c: int, dtype: torch.dtype) -> Optional[int]:
     for a width or type the kernels do not take).  That is 256 rows at
     C = 32, 112 at C = 64 and None from C = 128 on in float32; 256, 256, 112
     at C = 32, 64, 128 and None from C = 256 on in bfloat16."""
-    if dtype not in kernels.IO_DTYPES or c <= 0 or c % 32 or c > MMA_MAX_C:
+    if dtype not in kernels.IO_DTYPES or c <= 0 or c % KERNEL_C_MULTIPLE or c > MMA_MAX_C:
         return None
     itemsize = 2 if dtype == torch.bfloat16 else 4
     tile = STACK_MAX_TILE
@@ -205,7 +270,7 @@ def _unit_operands(x: torch.Tensor, p: Dict, c: int, prepared: Optional[Dict] = 
         kernels.require(p[conv]["b"], f"{prefix}{conv}.b", (c,), x.dtype, aligned=True)
         if prepared is None:
             kernels.require(p[conv]["w"], f"{prefix}{conv}.w", (c, c, k), x.dtype)
-            w = pack_mma_weights(p[conv]["w"])
+            w = pack_mma_weights(p[conv]["w"], unit_passes(c, x.element_size()) if k == 7 else 1)
         else:
             w = prepared[key]
             kernels.require(w, f"{prefix}prepared {key}", packed_shape(c, k, x.dtype), x.dtype, aligned=True)
@@ -213,19 +278,26 @@ def _unit_operands(x: torch.Tensor, p: Dict, c: int, prepared: Optional[Dict] = 
     return ops
 
 
-def _check_x(x: torch.Tensor, what: str) -> None:
+def _check_x(x: torch.Tensor, what: str, multiple: int = KERNEL_C_MULTIPLE) -> None:
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got {tuple(x.shape)}")
-    if x.shape[2] % 32:
-        raise ValueError(f"{what} kernel needs C % 32 == 0, got C={x.shape[2]}")
+    if x.shape[2] % multiple or x.shape[2] > MMA_MAX_C:
+        raise ValueError(f"{what} kernel needs C % {multiple} == 0 and C <= {MMA_MAX_C}, "
+                         f"got C={x.shape[2]}")
     kernels.require(x, "x", aligned=True)
 
 
 def _unit_launch(x: torch.Tensor, p: Dict, dilation: int, prepared: Optional[Dict] = None) -> torch.Tensor:
     """One K2 launch at ``pick_tile``'s rows per block (the result has the
-    same bits at any tile that fits)."""
-    _check_x(x, "residual_unit")
-    b, t, c = x.shape
+    same bits at any tile that fits), at ``kernel_width``: a width of 16 mod
+    32 is zero-padded for the launch and cut back after it."""
+    _check_x(x, "residual_unit", UNIT_C_MULTIPLE)
+    c_real = x.shape[2]
+    c = kernel_width(c_real)
+    if c != c_real:
+        return _unit_launch(F.pad(x, (0, c - c_real)), pad_unit(p, c), dilation,
+                            prepared)[..., :c_real].contiguous()
+    b, t, _ = x.shape
     d = int(dilation)
     ops = _unit_operands(x, p, c, prepared)
     out = torch.empty_like(x)

@@ -25,6 +25,21 @@ standard normal, at the bucket shapes; in the fused path F is the
 speculative bucket, or the retry's bucket after an overflow).  With a
 codec the wav is quantized to int16 PCM on the device and comes back as
 float32 / 32767.
+
+With ``mesh`` (``parallel/mesh.py``) the batch is split over the mesh's
+``data`` axis, as the JAX sampler shards it (throughput mode): every rank
+calls ``sample`` with the whole batch, which is padded with repeats of row
+0 up to a multiple of the axis; the phoneme, prompt and frame buckets are
+picked from the whole batch; each rank samples its rows (with a prompt
+wav, its own prompt analysis through K1/K2); the speculative bucket's
+overflow retry, and the staged path's frame bucket, follow the largest
+target length over the ranks (the target lengths are gathered before the
+decision, so every rank makes the same one); and the outputs are gathered,
+so that every rank returns the whole batch with the pad rows cut off.
+Noise drawn from
+the generator is drawn for the real rows of the whole batch, a pad row
+taking row 0's, and sliced, so each row gets the noise it gets without a
+mesh; noise given in ``noise`` is the whole batch's and is sliced so too.
 """
 
 from __future__ import annotations
@@ -41,6 +56,7 @@ from flamed_tts_tpu_torch.models.prior.sampling import pva_sample
 from flamed_tts_tpu_torch.models.prob.prob_generator import prob_sample
 from flamed_tts_tpu_torch.ops.length_regulator import length_regulate
 from flamed_tts_tpu_torch.ops.masking import mask_from_lengths
+from flamed_tts_tpu_torch.parallel.mesh import axis_size, gather_rows, pad_rows, rows_of
 from flamed_tts_tpu_torch.runtime.buckets import pick_bucket
 from flamed_tts_tpu_torch.utils.profiling import sample_span
 
@@ -50,14 +66,34 @@ MIN_FRAMES_PER_PHONEME = 7.0    # floor under the learnt budget
 RATIO_HISTORY = 256             # observed ratios kept
 
 
-def _noise(noise: Optional[Dict], key: str, shape, device, generator) -> torch.Tensor:
+class _Rows:
+    """This rank's rows [lo, hi) of a batch of ``real`` rows padded to
+    ``total`` with repeats of row 0."""
+
+    def __init__(self, lo: int, hi: int, real: int, total: int):
+        self.lo, self.hi, self.real, self.total = lo, hi, real, total
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole real batch's ``t`` -> this rank's rows of it padded."""
+        if self.total > self.real:
+            t = torch.cat([t, t[:1].expand(self.total - self.real, *t.shape[1:])])
+        return t[self.lo:self.hi]
+
+
+def _noise(noise: Optional[Dict], key: str, shape, device, generator,
+           rows: Optional[_Rows] = None) -> torch.Tensor:
+    """Standard-normal noise of ``shape`` (this rank's rows where ``rows``
+    is given: drawn, or given, for the whole real batch and sliced)."""
+    if rows is not None:
+        shape = (rows.real, *shape[1:])
     given = (noise or {}).get(key)
     if given is None:
-        return torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-    given = torch.as_tensor(np.array(given, dtype=np.float32), device=device)
-    if tuple(given.shape) != tuple(shape):
-        raise ValueError(f"noise[{key!r}] has shape {tuple(given.shape)}, expected {tuple(shape)}")
-    return given
+        out = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    else:
+        out = torch.as_tensor(np.array(given, dtype=np.float32), device=device)
+        if tuple(out.shape) != tuple(shape):
+            raise ValueError(f"noise[{key!r}] has shape {tuple(out.shape)}, expected {tuple(shape)}")
+    return out if rows is None else rows.take(out)
 
 
 def pcm16(wav: torch.Tensor) -> torch.Tensor:
@@ -78,14 +114,14 @@ class BucketedSampler:
 
     # --- the stages, all on the device -----------------------------------
 
-    def _stage1(self, phonemes, src_lens, noise, generator, nfe, temperature):
+    def _stage1(self, phonemes, src_lens, noise, generator, nfe, temperature, rows=None):
         b, l_bucket = phonemes.shape
         src_mask = mask_from_lengths(src_lens, l_bucket)
         enc_out = self.prior.encode(phonemes, src_mask)
         phone_dur, sil_dur = pva_sample(
             self.prior, enc_out, src_mask,
-            _noise(noise, "dur", (b, l_bucket), phonemes.device, generator),
-            _noise(noise, "sil", (b, l_bucket), phonemes.device, generator),
+            _noise(noise, "dur", (b, l_bucket), phonemes.device, generator, rows),
+            _noise(noise, "sil", (b, l_bucket), phonemes.device, generator, rows),
             nfe, temperature)
         valid = (~src_mask).float()
         tgt_len = ((torch.clamp(phone_dur, min=1.0) * valid).sum(1)
@@ -93,14 +129,14 @@ class BucketedSampler:
         return enc_out, phone_dur, sil_dur, tgt_len
 
     def _stage2(self, enc_out, phone_dur, sil_dur, src_lens, prompts, prompt_lens, f_bucket,
-                timbres, noise, generator, nfe, temperature, codec):
+                timbres, noise, generator, nfe, temperature, codec, rows=None):
         lr_out, tgt_len = length_regulate(enc_out, phone_dur, sil_dur, src_lens, f_bucket)
         tgt_mask = mask_from_lengths(tgt_len, f_bucket)
         hiddens, logits = self.prior.decode(lr_out, tgt_mask, prompts, prompt_lens)
         latents = prob_sample(
             self.prob, hiddens, timbres, tgt_mask,
             _noise(noise, "latents", (enc_out.shape[0], f_bucket, self.prob.target_dim),
-                   enc_out.device, generator),
+                   enc_out.device, generator, rows),
             nfe, temperature)
         wav = None
         if codec is not None:
@@ -142,10 +178,11 @@ class BucketedSampler:
                generator: Optional[torch.Generator] = None,
                fused: bool = True, frames_per_phoneme_budget: Optional[float] = None,
                prompt_wav: Optional[np.ndarray] = None,
-               prompt_frames: Optional[np.ndarray] = None) -> Dict:
+               prompt_frames: Optional[np.ndarray] = None, mesh=None) -> Dict:
         """phonemes (B, L) with src_lens (B,), and either prompts (B, n_q, P)
         + prompt_lens + timbres (B, 256), or prompt_wav (B, T) padded audio
         + prompt_frames (B,) true frame counts (fused only, needs ``codec``).
+        ``mesh``: the batch split over its data axis (module docstring).
 
         Returns {"latents" (B, F, 256), "prior_embs", "prior_logits",
         "tgt_len" (B,) numpy, "tgt_mask" (B, F) numpy, "frame_bucket" F} and
@@ -154,6 +191,18 @@ class BucketedSampler:
             raise ValueError(
                 "prompt_wav (prompt analysis queued with the sampling) requires fused=True; "
                 "use codec.encode_prompt + prompts/timbres for the staged path")
+        b_real = phonemes.shape[0]
+        rows = None
+        if mesh is not None:
+            total = b_real + (-b_real) % axis_size(mesh, "data")
+            phonemes, src_lens = pad_rows(phonemes, total - b_real), pad_rows(src_lens, total - b_real)
+            if prompt_wav is not None:
+                prompt_wav = pad_rows(np.asarray(prompt_wav), total - b_real)
+                prompt_frames = pad_rows(np.asarray(prompt_frames), total - b_real)
+            else:
+                prompts, prompt_lens, timbres = (pad_rows(a, total - b_real)
+                                                 for a in (prompts, prompt_lens, timbres))
+            rows = _Rows(*rows_of(total, mesh), b_real, total)
         b, l_in = phonemes.shape
         l_bucket = pick_bucket(l_in, self.phoneme_buckets)
         if l_in > l_bucket:
@@ -175,7 +224,12 @@ class BucketedSampler:
                           f"{p_bucket}; prompt truncated (raise prompt_buckets)", stacklevel=2)
 
         def dev(a):
-            return torch.as_tensor(a, device=device)
+            """This rank's rows of a whole-batch array, on the device."""
+            return torch.as_tensor(a if rows is None else a[rows.lo:rows.hi], device=device)
+
+        def whole(t):
+            """Every rank's rows of a device tensor, the pad rows cut off."""
+            return t if rows is None else gather_rows(t, mesh)[:b_real]
 
         with sample_span("input_place"):
             if prompt_wav is None:
@@ -187,6 +241,7 @@ class BucketedSampler:
             phonemes_t, src_lens_t = dev(phonemes_b), dev(src_lens)
 
         def result(latents, hiddens, logits, tgt_len_h, tgt_mask_h, wav_h):
+            latents, hiddens, logits = whole(latents), whole(hiddens), whole(logits)
             out = {"latents": latents, "prior_embs": hiddens, "prior_logits": logits,
                    "tgt_len": tgt_len_h, "tgt_mask": tgt_mask_h,
                    "frame_bucket": int(latents.shape[1])}
@@ -196,7 +251,8 @@ class BucketedSampler:
             return out
 
         def observe(tgt_raw_h):
-            ratios = tgt_raw_h / np.maximum(np.asarray(src_lens, np.float32), 1.0)
+            """tgt_raw_h: the whole batch's raw target lengths (real rows)."""
+            ratios = tgt_raw_h / np.maximum(np.asarray(src_lens[:b_real], np.float32), 1.0)
             self._ratio_history.extend(float(r) for r in ratios)
             del self._ratio_history[:-RATIO_HISTORY]
             if int(tgt_raw_h.max()) > self.frame_buckets[-1]:
@@ -229,12 +285,13 @@ class BucketedSampler:
             def stage2(f_bucket):
                 return self._stage2(enc_out, phone_dur, sil_dur, src_lens_t, prompts_t,
                                     prompt_lens_t, f_bucket, timbres_t, noise, generator,
-                                    nsteps_denoiser, temp_denoiser, codec)
+                                    nsteps_denoiser, temp_denoiser, codec, rows)
 
             def fetch(res, *more):
-                """The one transfer: lengths, mask and wav together."""
-                host = [t.cpu().numpy() for t in more + (res[3], res[4])]
-                return host + [None if res[5] is None else res[5].cpu().numpy()]
+                """The one transfer: lengths, mask and wav together (the whole
+                batch's on a mesh)."""
+                host = [whole(t).cpu().numpy() for t in more + (res[3], res[4])]
+                return host + [None if res[5] is None else whole(res[5]).cpu().numpy()]
 
             # fused_dispatch: the host's time to enqueue the whole fused call
             # (prompt analysis, both Euler loops, the decoder).  Everything in
@@ -246,7 +303,7 @@ class BucketedSampler:
                     prompts_t, prompt_lens_t, timbres_t = self._analyze_prompt(
                         codec, wav_t, frames_t, p_bucket, vocab_pad)
                 enc_out, phone_dur, sil_dur, tgt_raw = self._stage1(
-                    phonemes_t, src_lens_t, noise, generator, nsteps_durgen, temp_durgen)
+                    phonemes_t, src_lens_t, noise, generator, nsteps_durgen, temp_durgen, rows)
                 res = stage2(f_guess)
             with sample_span("fused_get"):
                 tgt_raw_h, tgt_len_h, tgt_mask_h, wav_h = fetch(res, tgt_raw)
@@ -262,12 +319,12 @@ class BucketedSampler:
             return result(res[0], res[1], res[2], tgt_len_h, tgt_mask_h, wav_h)
 
         enc_out, phone_dur, sil_dur, tgt_est = self._stage1(
-            phonemes_t, src_lens_t, noise, generator, nsteps_durgen, temp_durgen)
-        tgt_est_h = tgt_est.cpu().numpy()  # the one host read between the stages
+            phonemes_t, src_lens_t, noise, generator, nsteps_durgen, temp_durgen, rows)
+        tgt_est_h = whole(tgt_est).cpu().numpy()  # the one host read between the stages
         observe(tgt_est_h)
         f_bucket = pick_bucket(int(tgt_est_h.max()), self.frame_buckets)
         latents, hiddens, logits, tgt_len, tgt_mask, wav = self._stage2(
             enc_out, phone_dur, sil_dur, src_lens_t, prompts_t, prompt_lens_t, f_bucket,
-            timbres_t, noise, generator, nsteps_denoiser, temp_denoiser, codec)
-        return result(latents, hiddens, logits, tgt_len.cpu().numpy(), tgt_mask.cpu().numpy(),
-                      None if wav is None else wav.cpu().numpy())
+            timbres_t, noise, generator, nsteps_denoiser, temp_denoiser, codec, rows)
+        return result(latents, hiddens, logits, whole(tgt_len).cpu().numpy(),
+                      whole(tgt_mask).cpu().numpy(), None if wav is None else whole(wav).cpu().numpy())

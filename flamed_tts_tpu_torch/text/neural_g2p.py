@@ -54,6 +54,16 @@ def encode_word(word: str) -> Optional[np.ndarray]:
     return np.asarray([BOS] + ids + [EOS], dtype=np.int32)
 
 
+def encode_phones(phones: List[str]) -> Optional[np.ndarray]:
+    """Phone ids [L] with BOS/EOS, or None where a phone is not in the
+    inventory (the training targets of ``train_g2p``)."""
+    ids = [TGT_VOCAB[p] for p in phones if p in TGT_VOCAB]
+    if not ids or len(ids) != len(phones):
+        return None
+    ids = ids[: MAX_TGT - 2]
+    return np.asarray([BOS] + ids + [EOS], dtype=np.int32)
+
+
 # --- the transformer, pure functions over a parameter dict -------------
 
 
@@ -189,6 +199,21 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict:
                 node = node.setdefault(part, {})
         node[parts[-1]] = val
     return params
+
+
+def flatten(params: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The parameter tree as the weights file's flat "enc/0/attn/wq" keys
+    (the inverse of ``_unflatten``)."""
+    flat: Dict[str, np.ndarray] = {}
+    if isinstance(params, list):
+        for i, item in enumerate(params):
+            flat.update(flatten(item, f"{prefix}{i}/"))
+    elif isinstance(params, dict):
+        for key, val in params.items():
+            flat.update(flatten(val, f"{prefix}{key}/"))
+    else:
+        flat[prefix[:-1]] = np.asarray(params)
+    return flat
 
 
 def load_weights(path: Optional[str] = None) -> Optional[Dict]:

@@ -8,6 +8,11 @@ flax trees, which ``Flamed.from_pretrained`` here and the JAX package's
 own: both modules' state dicts, the optimizer's moments, the schedule, the
 step count and the step generator's state, with whatever the caller adds
 (the collator's random state).
+
+On a mesh every rank runs the loop on its rows of each batch; the
+checkpoints gather split parameters and moments whole on every rank (a
+collective) and only a manager with ``write`` (rank 0) writes them, in the
+single-process format.
 """
 
 from __future__ import annotations
@@ -23,8 +28,11 @@ import numpy as np
 import torch
 
 from flamed_tts_tpu_torch.convert import params_to_jax
+from flamed_tts_tpu_torch.parallel.mesh import rows_of, shard_batch
+from flamed_tts_tpu_torch.parallel.sharding import full_state_dict
 from flamed_tts_tpu_torch.runtime.pytree_io import save_pytree_npz
-from flamed_tts_tpu_torch.train.step import TrainState, batch_to_device, eval_losses, train_step
+from flamed_tts_tpu_torch.train.step import (TrainState, batch_to_device, eval_losses,
+                                             full_optimizer_state, mesh_rows, train_step)
 
 
 class MetricLogger:
@@ -58,20 +66,25 @@ class MetricLogger:
 
 
 def params_tree(state: TrainState) -> Dict:
-    """The state's parameters as the JAX package's checkpoint tree."""
+    """The state's parameters as the JAX package's checkpoint tree, split
+    parameters gathered whole (every rank of a mesh calls it)."""
     return {"prior": params_to_jax(state.prior.state_dict()),
-            "prob": params_to_jax(state.prob.state_dict())}
+            "prob": params_to_jax(full_state_dict(state.prob))}
 
 
 class CheckpointManager:
     """``last.npz``, the ``top_k`` lowest-validation-loss ``.npz`` files and
-    ``train_state.pt`` under ``ckpt_dir``."""
+    ``train_state.pt`` under ``ckpt_dir``.  Every rank of a mesh calls its
+    save methods (they gather); only a manager with ``write`` writes."""
 
-    def __init__(self, ckpt_dir: str, top_k: int = 10):
+    def __init__(self, ckpt_dir: str, top_k: int = 10, write: bool = True, mesh=None):
         self.ckpt_dir = ckpt_dir
         self.top_k = top_k
+        self.write = write
+        self.mesh = mesh
         self.best: List[Tuple[float, str]] = []
-        os.makedirs(ckpt_dir, exist_ok=True)
+        if write:
+            os.makedirs(ckpt_dir, exist_ok=True)
 
     @property
     def full_state_path(self) -> str:
@@ -79,12 +92,17 @@ class CheckpointManager:
 
     def save_last(self, state: TrainState) -> str:
         path = os.path.join(self.ckpt_dir, "last.npz")
-        save_pytree_npz(path, params_tree(state))
+        tree = params_tree(state)
+        if self.write:
+            save_pytree_npz(path, tree)
         return path
 
     def save_topk(self, state: TrainState, val_loss: float, step: int) -> str:
         path = os.path.join(self.ckpt_dir, f"step{step}-val{val_loss:.4f}.npz")
-        save_pytree_npz(path, params_tree(state))
+        tree = params_tree(state)
+        if not self.write:
+            return path
+        save_pytree_npz(path, tree)
         self.best.append((val_loss, path))
         self.best.sort(key=lambda item: item[0])
         while len(self.best) > self.top_k:
@@ -97,12 +115,14 @@ class CheckpointManager:
         payload = {
             "step": state.step,
             "prior": state.prior.state_dict(),
-            "prob": state.prob.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "prob": full_state_dict(state.prob),
+            "optimizer": full_optimizer_state(state, self.mesh),
             "scheduler": state.scheduler.state_dict(),
             "generator": state.generator.get_state(),
             "extra": extra or {},
         }
+        if not self.write:
+            return self.full_state_path
         tmp = f"{self.full_state_path}.tmp"
         torch.save(payload, tmp)
         os.replace(tmp, self.full_state_path)
@@ -110,7 +130,8 @@ class CheckpointManager:
 
     def load_full_state(self, state: TrainState) -> Dict:
         """Restore ``state`` in place from ``train_state.pt``; returns the
-        ``extra`` dict saved with it."""
+        ``extra`` dict saved with it.  On a mesh, before
+        ``place_train_state``."""
         device = next(state.prior.parameters()).device
         payload = torch.load(self.full_state_path, map_location=device, weights_only=True)
         state.prior.load_state_dict(payload["prior"])
@@ -128,7 +149,7 @@ def run_training(state: TrainState, train_batches: Iterator[Dict[str, np.ndarray
                  logger: Optional[MetricLogger] = None, ckpt: Optional[CheckpointManager] = None,
                  audio_logger: Optional[Callable[[TrainState, int], Optional[Dict]]] = None,
                  full_state_extra: Optional[Callable[[], Dict]] = None,
-                 loss_norm: str = "masked") -> TrainState:
+                 loss_norm: str = "masked", mesh=None) -> TrainState:
     """Steps from ``state.step`` to ``max_steps`` over numpy batches.
 
     Every ``log_every`` steps the last step's losses, ``grad_norm`` and the
@@ -136,7 +157,12 @@ def run_training(state: TrainState, train_batches: Iterator[Dict[str, np.ndarray
     second) are logged: the only host reads of the step's results.  Every
     ``val_every`` steps: the mean validation ``total_loss_val``, a top-k
     checkpoint, ``last.npz``, the full state and the audio logger (whose
-    returned scalars are logged), outside the timed intervals."""
+    returned scalars are logged), outside the timed intervals.
+
+    On a ``mesh`` every rank gets the whole batches and steps on its rows
+    (``shard_batch``; a validation batch's rows split as ``rows_of``
+    cuts them); pass a ``logger`` on rank 0 alone.  The rates count the
+    whole batch."""
     device = next(state.prior.parameters()).device
     first_step = True
     t_last = time.perf_counter()
@@ -144,7 +170,8 @@ def run_training(state: TrainState, train_batches: Iterator[Dict[str, np.ndarray
     for batch in train_batches:
         if state.step >= max_steps:
             break
-        metrics = train_step(state, batch_to_device(batch, device), loss_norm=loss_norm)
+        metrics = train_step(state, batch_to_device(shard_batch(batch, mesh), device),
+                             loss_norm=loss_norm, mesh=mesh)
         step = state.step
         n_steps += 1
         n_samples += int(batch["phonemes"].shape[0])
@@ -176,8 +203,7 @@ def run_training(state: TrainState, train_batches: Iterator[Dict[str, np.ndarray
         if step % val_every == 0:
             t_val = time.perf_counter()
             if make_val_batches is not None:
-                losses = [float(eval_losses(state, batch_to_device(b, device),
-                                            loss_norm=loss_norm)["total_loss"])
+                losses = [float(_val_loss(state, b, device, loss_norm, mesh))
                           for b in make_val_batches()]
                 val_loss = float(np.mean(losses)) if losses else float("nan")
                 if logger is not None:
@@ -203,3 +229,13 @@ def run_training(state: TrainState, train_batches: Iterator[Dict[str, np.ndarray
         ckpt.save_last(state)
         ckpt.save_full_state(state, full_state_extra() if full_state_extra else None)
     return state
+
+
+def _val_loss(state: TrainState, batch: Dict[str, np.ndarray], device, loss_norm: str, mesh):
+    """One validation batch's ``total_loss``; on a mesh from this rank's
+    rows of it (none, for a rank past a short batch's end)."""
+    total = len(batch["phonemes"])
+    lo, hi = rows_of(total, mesh)
+    local = batch_to_device({k: v[lo:hi] for k, v in batch.items()}, device)
+    return eval_losses(state, local, loss_norm=loss_norm, rows=mesh_rows(lo, hi, total, mesh),
+                       mesh=mesh)["total_loss"]

@@ -229,11 +229,15 @@ class FiniteAdam:
     (parameters, moments, counts) and adds one to ``notfinite_count`` (reset
     by the next finite step).  The clip is optax's: g * max_norm / ||g||
     where ||g|| >= max_norm, no epsilon; the decay is optax's, lr * wd * p
-    on every parameter."""
+    on every parameter.  With ``if_finite=False`` it is the chain alone
+    (no ``apply_if_finite``): every step is applied, as ``tools/train_g2p.py``
+    builds it."""
 
     def __init__(self, params: List[torch.Tensor], schedule, max_norm: float = 1.0,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
+                 if_finite: bool = True):
         self.params, self.schedule, self.max_norm = params, schedule, max_norm
+        self.if_finite = if_finite
         self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
@@ -244,8 +248,7 @@ class FiniteAdam:
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> bool:
         """Apply one update; False where it was skipped."""
-        finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-        if not finite:
+        if self.if_finite and not bool(torch.stack([torch.isfinite(g).all() for g in grads]).all()):
             self.notfinite_count += 1
             self.total_notfinite += 1
             return False

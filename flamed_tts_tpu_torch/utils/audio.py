@@ -1,6 +1,8 @@
-"""Host-side WAV I/O and resampling: 8/16/32-bit PCM and float WAVs are
-read with ``scipy.io.wavfile`` and resampled with ``scipy.signal``'s
-polyphase filter; output is 16-bit PCM."""
+"""Host-side WAV I/O and resampling: WAVs are decoded by the native codec
+(``utils/native_audio.py``, ``csrc/wavio.cpp``) where it is built, else read
+with ``scipy.io.wavfile`` (8/16/32-bit PCM and float), as in the JAX
+package; resampled with ``scipy.signal``'s polyphase filter; output is
+16-bit PCM."""
 
 from __future__ import annotations
 
@@ -29,11 +31,19 @@ def _to_float32(data: np.ndarray) -> np.ndarray:
 
 
 def load_wav(path: str, sr: int = DEFAULT_SR) -> np.ndarray:
-    """Load a WAV as mono float32 in [-1, 1] resampled to ``sr``."""
-    file_sr, data = wavfile.read(path)
-    wav = _to_float32(np.asarray(data))
-    if wav.ndim == 2:  # (T, channels) -> mono
-        wav = wav.mean(axis=1)
+    """Load a WAV as mono float32 in [-1, 1] resampled to ``sr``: decoded
+    by the native codec where it is available, else by scipy."""
+    from flamed_tts_tpu_torch.utils import native_audio
+
+    with open(path, "rb") as fin:
+        native = native_audio.decode_wav(fin.read())
+    if native is not None:
+        wav, file_sr = native
+    else:
+        file_sr, data = wavfile.read(path)
+        wav = _to_float32(np.asarray(data))
+        if wav.ndim == 2:  # (T, channels) -> mono
+            wav = wav.mean(axis=1)
     if file_sr != sr:
         g = np.gcd(int(file_sr), int(sr))
         wav = resample_poly(wav, sr // g, file_sr // g).astype(np.float32)

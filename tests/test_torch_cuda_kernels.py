@@ -197,7 +197,7 @@ def test_residual_stack_smem_formula_matches_the_source(device):
         for tile in (64, 160, 256):
             for itemsize in (2, 4):
                 assert fn(c, tile, 1, 3, 9, itemsize) == stack_smem_bytes(c, tile, itemsize)
-    for c in (32, 96, 512):
+    for c in (32, 96, 512, 640):
         for d in (1, 3, 9):
             for tile in (4, 12, 52, 116):
                 for itemsize in (2, 4):
@@ -269,10 +269,41 @@ def test_mma_padding_shapes_fp32(device, t_len, c):
 def test_bf16_kernels_refuse_a_width_past_the_weight_stage(device, dtype):
     from flamed_tts_tpu_torch.ops.resunit import residual_unit_cuda
 
+    # the weight stage holds any width since a pass streams only its items'
+    # channel groups; what is refused is a width past MMA_MAX_C (640)
     rng = np.random.RandomState(3)
-    p = _unit_params(rng, 544, device, dtype)
-    with pytest.raises(ValueError, match="does not fit"):
-        residual_unit_cuda(_rand(rng, 1, 40, 544).to(device).to(dtype), p, 1)
+    p = _unit_params(rng, 672, device, dtype)
+    with pytest.raises(ValueError, match="C <= 640"):
+        residual_unit_cuda(_rand(rng, 1, 40, 672).to(device).to(dtype), p, 1)
+
+
+# the FaCodec redecoder's blocks at its reference width (upsample_initial_channel
+# 1280) for a 3 s source: 640 channels past 512 (fp32: the dilated conv in two
+# passes), 80 channels of 16 mod 32 (zero-padded to 96 by the wrapper); short
+# lengths here, the full ones in chip_smoke.py phase 2
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [1, 3, 9])
+@pytest.mark.parametrize("t_len,c", [(1200, 640), (333, 640), (4000, 80), (47, 80), (600, 320)])
+def test_residual_unit_kernel_redecoder_widths(device, t_len, c, d, dtype):
+    from flamed_tts_tpu_torch.ops import resunit
+    from flamed_tts_tpu_torch.ops.resunit import (SMEM_LIMIT, kernel_width, pick_tile, prepare_unit,
+                                                  residual_unit_cuda, residual_unit_reference,
+                                                  unit_smem_bytes)
+
+    rng = np.random.RandomState(t_len + c + d)
+    p = _unit_params(rng, c, device, dtype)
+    x = _rand(rng, 2, t_len, c).to(device).to(dtype)
+    out = residual_unit_cuda(x, p, d)
+    torch.cuda.synchronize()
+    _assert_close(out, residual_unit_reference(x, p, d))
+    assert torch.equal(out, residual_unit_cuda(x, p, d, prepared=prepare_unit(p)))
+    # the same bits from another tile that fits
+    itemsize = x.element_size()
+    cw = kernel_width(c)
+    other = next(tile for tile in (36, 4, 7) if tile != pick_tile(t_len, cw, d, itemsize)
+                 and unit_smem_bytes(cw, d, tile, itemsize) <= SMEM_LIMIT)
+    with mock.patch.object(resunit, "pick_tile", lambda *a: other):
+        assert torch.equal(out, residual_unit_cuda(x, p, d))
 
 
 @pytest.mark.parametrize("kernel", ["snake_filtered", "residual_unit", "residual_stack"])

@@ -137,10 +137,14 @@ def test_pick_tile_values():
     assert pick_tile(1, 32, 1, 2) == 20
     # the largest tile that fits C = 512, d = 9 beside the weight stages
     assert unit_smem_bytes(512, 9, 52, 2) <= SMEM_LIMIT < unit_smem_bytes(512, 9, 68, 2)
+    # past 512 float32 channels the dilated conv holds half of them at a time:
+    # the redecoder's C = 640 takes 20 rows at every d, in both types
+    assert [pick_tile(1200, 640, d, 4) for d in (1, 3, 9)] == [20, 20, 20]
+    assert [pick_tile(1200, 640, d, 2) for d in (1, 3, 9)] == [20, 20, 20]
     with pytest.raises(ValueError, match="does not fit"):
-        pick_tile(100, 544, 1, 2)  # past the widest conv a weight stage holds
+        pick_tile(100, 672, 1, 2)  # past the widest conv the kernels take
     with pytest.raises(ValueError, match="does not fit"):
-        pick_tile(100, 544, 1, 4)
+        pick_tile(100, 672, 1, 4)
     assert stack_tile(544, torch.bfloat16) is None and stack_tile(544, torch.float32) is None
 
 

@@ -165,8 +165,11 @@ def test_python_constants_mirror_the_cuda_header():
     assert int(d["MMA_STAGE_BYTES"]) == resunit.MMA_STAGE_BYTES
     assert int(d["MMA_STAGES"]) == resunit.MMA_STAGES
     assert int(d["MMA_MAX_C"]) == resunit.MMA_MAX_C
-    # the widest conv's slab of one K step fills a stage exactly
-    assert resunit.MMA_MAX_C * resunit.MMA_STEP_BYTES == resunit.MMA_STAGE_BYTES
+    assert int(d["MMA_PASS_BYTES"]) == resunit.MMA_PASS_BYTES
+    # a pass of conv_mma stages one 32-channel group of each K step's slab
+    # for each of its items, at most one item a warp: the 16 warps of the
+    # widest block fill a stage exactly, whatever C is
+    assert (512 // 32) * 32 * resunit.MMA_STEP_BYTES == resunit.MMA_STAGE_BYTES
     with open(os.path.join(kernels.CSRC_DIR, "resunit.cuh")) as f:
         text = f.read()
     assert "conv_rows" not in text and "fmaf(h." not in text  # the scalar-FMA route is gone
