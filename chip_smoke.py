@@ -117,6 +117,15 @@ Phases (any failure exits non-zero before the last line):
      against the CPU; ``expand_lexicon`` and ``lexicon_coverage`` against
      the CPU's outputs; then K1 and K2 timed as in phase 5 at the mesh
      call's shapes.
+  11. the component benchmark, ``python -m flamed_tts_tpu_torch.bench_components``
+     at full width: every section in bf16, the mfu table in fp32, and the
+     mfu table at batch 4 and nfe 128 (bench_throughput's shape); every row
+     finite, under both peaks, its counted hand-kernel calls equal to the
+     launches its wrappers made, and the codec rows' K1 / K2 launches equal
+     to their shapes; the convforms pairs within CONVFORM_BF16_STEPS; the
+     codec decode's and the prompt encode's FLOPs and bytes equal to the
+     same rows counted on the CPU; the compute-floor RTF at or under phase
+     7's wall RTF of the same shape.
      Last: the kernels line (paths A, B, precompute, validation, bench,
      codec_train, redecoder, eval and mesh), the card's name and power
      limit, the device line.
@@ -139,9 +148,9 @@ import types
 import numpy as np
 import torch
 
-PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-PEAK_FP32_FLOP_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores
-PEAK_BF16_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
+from flamed_tts_tpu_torch.ops import costs
+from flamed_tts_tpu_torch.utils.profiling import events_ms, graph_ms, nvidia_smi_line
+
 # fp32 both sides.  What differs: the order of the FIR and conv sums; the
 # kernels' sin^2, which reduces its argument by the period pi and is within
 # 4e-7 of the exact value where the plain version's sin is within 1.2e-7
@@ -158,7 +167,6 @@ TOL = 1e-4
 # products in fp32 as the FMA loop did, in yet another order, which is the
 # one freedom the bound was sized for.
 BF16_STEPS = 8
-SNAKE_FLOP_PER_ELEM = 58  # 12 upsample FMAs + 2 snakes (mul, sin, sq, fma) + 12 decimation FMAs, x2 per FMA
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CODEC_DIR = os.path.join(ROOT, "artifacts", "codec_r5")
 PHONEMES = [int(v) for v in np.random.RandomState(11).randint(64, 148, 60)]
@@ -220,6 +228,9 @@ EVAL_ENTRIES = 8  # lines of the evaluate run's metadata
 G2P_EPOCHS = 3
 EXPANDED_LEXICON_SHA256 = "84f1048cc5bc2bdeaee7d84b6a0adb7353ab8e1fa47a623629ab5097ebfdfecb"
 COVERAGE_LINE_SHA256 = "ac822448436c2553a81842a419b810d4c0f6628fa2be69cffd88e83337a663dd"
+# phase 11: the convforms pairs' largest difference, in bf16 steps (2^-7) of
+# the library output's peak
+CONVFORM_BF16_STEPS = 2
 # a Function's gradients against autograd through the plain chain: both are
 # the plain chain's VJP at the same input, so only cuDNN's choice of
 # backward algorithm between two calls may part them
@@ -261,55 +272,14 @@ def tf32_label() -> str:
             f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}")
 
 
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int) -> float:
-    """Device time per call with the host's launch cost taken out: ``reps``
-    calls captured in one CUDA graph, one replay timed with CUDA events."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bound_ms(name: str, t: int, c: int, dtype: torch.dtype) -> tuple:
-    """Least time for one call at (1, t, c): bytes (x read once, the output
-    written once, the parameters read once) over the HBM rate, operations
-    over the peak rate of the io type (fp32: outside the tensor cores; bf16:
-    the bf16 tensor cores); returns (ms, 'bytes' | 'operations')."""
-    n, item = t * c, (2 if dtype == torch.bfloat16 else 4)
-    units = {"snake_filtered": 0, "residual_unit": 1, "residual_stack": 3}[name]
-    if units == 0:
-        nbytes, flops = 2 * item * n + 8 * c, SNAKE_FLOP_PER_ELEM * n
-    else:
-        nbytes = 2 * item * n + units * (item * (8 * c * c + 2 * c) + 16 * c)
-        flops = units * (16 * t * c * c + 2 * SNAKE_FLOP_PER_ELEM * n + 2 * n)
-    peak = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 else PEAK_FP32_FLOP_PER_S
-    tb, to = nbytes / PEAK_BYTES_PER_S, flops / peak
-    return (1e3 * max(tb, to), "bytes" if tb >= to else "operations")
+    """Least time for one call at (1, t, c) on this card, by
+    ``ops/costs.py`` (``kernel_cost``: x read once, the output written once,
+    the parameters read once; the operations at the peak rate of the io
+    type, float32 outside the tensor cores, bfloat16 on them); returns (ms,
+    'bytes' | 'operations')."""
+    flops, nbytes = costs.kernel_cost(name, t, c, dtype)
+    return costs.bound_ms(flops, nbytes, dtype, costs.device_peaks())
 
 
 def tensor_core_counts(kernels) -> dict:
@@ -649,7 +619,8 @@ def training_phase(kernels, compare, codec, dev, tmp: str) -> dict:
 def bench_phase(kernels, dev) -> dict:
     """Phase 7, the serving path's measurement and ingestion entry points
     (see the module docstring).  Returns, for the kernels line, {"bench":
-    {"calls", "launches"}} of one timed bench call."""
+    {"calls", "launches"}} of one timed bench call, with the bench's RTF
+    ("rtf") and bench_throughput's ("throughput_rtf") for phase 11."""
     import tempfile
 
     from flamed_tts_tpu_torch import bench, bench_throughput, profile_sample
@@ -783,7 +754,8 @@ def bench_phase(kernels, dev) -> dict:
         del states, wavs
         elapsed("the .ckpt route")
 
-    return {"bench": {"calls": calls, "launches": launches}}
+    return {"bench": {"calls": calls, "launches": launches, "rtf": res["report"]["value"],
+                      "throughput_rtf": thr["report"]["value"]}}
 
 
 def codec_train_calls(params, batch: int, n_samples: int) -> list:
@@ -818,8 +790,8 @@ def grad_check(name: str, kernel_fn, plain_fn, x, leaves, label: str, gen) -> tu
     want = torch.autograd.grad(ref, wrt, g, retain_graph=True)
     fwd_ok = bool(torch.all((out - ref).abs() <= TOL + TOL * ref.abs()))
     worst = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30) for a, b in zip(got, want))
-    k_ms = time_ms(lambda: torch.autograd.grad(out, wrt, g, retain_graph=True), 3)
-    p_ms = time_ms(lambda: torch.autograd.grad(ref, wrt, g, retain_graph=True), 3)
+    k_ms = events_ms(lambda: torch.autograd.grad(out, wrt, g, retain_graph=True), 3)
+    p_ms = events_ms(lambda: torch.autograd.grad(ref, wrt, g, retain_graph=True), 3)
     log(f"[phase 8] [grad] {name} {label}: forward {'ok' if fwd_ok else 'FAIL'}; gradients of x and "
         f"{len(leaves)} parameters: largest error {worst:.3e} of the leaf's largest gradient (tol "
         f"{GRAD_TOL:g}: the same plain VJP at the same input, cuDNN's backward algorithms); backward "
@@ -1345,7 +1317,7 @@ def eval_phase(kernels, codec, dev) -> dict:
                 f"phones and words {'equal' if same else 'DIFFER'}")
             if excess > 0 or not same:
                 raise AssertionError("the recognizer on the card disagrees with the CPU")
-            dev_ms.append(time_ms(lambda: asr.forward(rec.tensors, rec.mel(wav)), 10))
+            dev_ms.append(events_ms(lambda: asr.forward(rec.tensors, rec.mel(wav)), 10))
             t0 = time.perf_counter()
             rec.decode_words(lg)
             host_ms.append(1e3 * (time.perf_counter() - t0))
@@ -1486,6 +1458,87 @@ def _g2p_card_vs_cpu(dev) -> None:
         f"largest move {moved:.3e}")
     if not (loss_rel <= 1e-4 and worst <= 0.0 and moved > 1e-5):
         raise AssertionError("train_g2p's step on the card disagrees with the CPU's")
+
+
+def components_phase(kernels, dev, bench: dict) -> None:
+    """Phase 11, the component benchmark (see the module docstring).
+    ``bench`` is phase 7's {"rtf", "throughput_rtf"}: a compute floor above
+    the wall of the same bucket is a fault of the count or the timer."""
+    from flamed_tts_tpu_torch import bench_components as bc
+
+    t_phase = time.perf_counter()
+    log(f"[phase 11] {nvidia_smi_line()}")
+    runs = {}
+    for label, argv in (("bf16", ["--which", "codec,pieces,prior,convforms,mfu", "--dtype", "bf16"]),
+                        ("fp32", ["--which", "mfu", "--dtype", "fp32"]),
+                        ("batch4", ["--which", "mfu", "--batch", "4", "--nfe", "128"])):
+        res = runs[label] = bc.main(argv)  # prints its rows and its JSON line
+        codec = res["codec"]
+        for r in res["rows"]:
+            if not (math.isfinite(r["ms"]) and r["ms"] > 0 and r["flop_pct"] <= 100 and r["hbm_pct"] <= 100):
+                raise AssertionError(f"bench_components {label}: row {r['name']!r} reads {r['ms']} ms, "
+                                     f"{r['flop_pct']} % / {r['hbm_pct']} % of the peaks")
+            # the counter's hand-kernel calls are the launches the wrappers made
+            if {k: v for k, v in r["launches"].items() if v} != r["kernel_calls"]:
+                raise AssertionError(f"bench_components {label} {r['name']!r}: launches {r['launches']}, "
+                                     f"counted {r['kernel_calls']}")
+        expected = {"codec synthesize total": decoder_calls(codec, bc.L)}
+        for i, (t, ci, co, s) in enumerate(bc._block_shapes(codec, bc.L)):
+            blk = codec.dec_params["blocks"][i]
+            expected[f"block{i} C{ci}->{co} L{t} stride{s}"] = (
+                [("snake_filtered", t, ci, 0, blk["act"], None)]
+                + [("residual_unit", t * s, co, d, u, None) for u, d in zip(blk["res"], (1, 3, 9))])
+            expected[f"block{i} L{t} C{ci}: snake"] = [("snake_filtered", t, ci, 0, blk["act"], None)]
+            expected[f"block{i} L{t} C{ci}: res x3"] = [("residual_unit", t * s, co, d, u, None)
+                                                        for u, d in zip(blk["res"], (1, 3, 9))]
+        expected[f"codec decode ({bc.L}f -> {bc.L * codec.hop / codec.sr:.1f}s wav)"] = decoder_calls(codec, bc.L)
+        expected[f"prompt encode ({bc.PROMPT_FRAMES * codec.hop / codec.sr:g} s wav)"] = encoder_calls(
+            codec, bc.PROMPT_FRAMES * codec.hop)
+        checked = 0
+        for r in res["rows"]:
+            want = launch_counts(expected.get(r["name"], []))
+            if r["launches"] != want:
+                raise AssertionError(f"bench_components {label} {r['name']!r}: launches {r['launches']}, "
+                                     f"expected from its shapes {want}")
+            checked += r["name"] in expected
+        for r in res["rows"]:
+            if r["section"] == "convforms" and not r["max_abs_err"] <= CONVFORM_BF16_STEPS * 2.0 ** -7 * r["out_max_abs"]:
+                raise AssertionError(f"bench_components convforms {r['name']!r}: max abs err "
+                                     f"{r['max_abs_err']:.3e} at an output peak of {r['out_max_abs']:.3f}")
+        log(f"[phase 11] [{label}] {len(res['rows'])} rows finite, under both peaks, the counted hand-kernel "
+            f"calls equal to the launches; {checked} rows' K1 / K2 launches held to their shapes")
+    conv = [r for r in runs["bf16"]["rows"] if r["section"] == "convforms"]
+    log(f"[phase 11] [convforms] bf16 max abs err {max(r['max_abs_err'] for r in conv):.3e}, at most "
+        f"{max(r['max_abs_err'] / r['out_max_abs'] for r in conv) / 2.0 ** -7:.2f} bf16 steps of the output "
+        f"peak (tol {CONVFORM_BF16_STEPS}: both forms round one float32 sum a sample, in another order)")
+
+    # the codec rows counted on the CPU (float32, the plain versions) equal
+    # the card's count of the same rows (float32 run)
+    from flamed_tts_tpu_torch.config import load_default_config
+
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        cfg = load_default_config()
+        stages, _ = bc.mfu_stages(bc.make_model(cfg, torch.float32, cpu), bc.make_codec(cfg, torch.float32, cpu),
+                                  torch.float32, 1, 64, cpu)
+        on_cpu = {st.name: bc.Bench(cpu, torch.float32).count(st) for st in stages[2:4]}
+    card = {r["name"]: r for r in runs["fp32"]["rows"]}
+    for name, c in on_cpu.items():
+        r = card[name]
+        log(f"[phase 11] [count] {name}: card {r['flops']} FLOP, {r['bytes']} bytes, {r['kernel_calls']}; "
+            f"CPU {c['flops']} FLOP, {c['bytes']} bytes, {c['kernel_calls']}")
+        if (r["flops"], r["bytes"], r["kernel_calls"]) != (c["flops"], c["bytes"], c["kernel_calls"]):
+            raise AssertionError(f"bench_components: {name} counts otherwise on the card than on the CPU")
+
+    for label, wall, what in (("bf16", bench["rtf"], "bench (phase 7, B = 1, nfe 64, bucket 768)"),
+                              ("batch4", bench["throughput_rtf"], "bench_throughput (phase 7, B = 4, nfe 128)")):
+        total = runs[label]["total"]
+        log(f"[phase 11] [floor] {label}: compute floor RTF {total['rtf_compute_floor']:.5f} "
+            f"({total['compute_ms']:.1f} device ms for {total['audio_s']:.1f} s), {total['gflop']:.1f} GFLOP, "
+            f"mfu_whole_call {total['mfu_whole_call']:.3f} %; {what} RTF {wall}")
+        if not total["rtf_compute_floor"] <= wall:
+            raise AssertionError(f"the compute floor ({label}) reads above the wall RTF of {what}")
+    log(f"[phase 11] done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def parallel_phase(kernels, codec, model, dev, work: str) -> dict:
@@ -1706,7 +1759,7 @@ def train_step_breakdown(state, on_card, batch) -> None:
         f"{batch['phonemes'].shape[-1]}, prompt {batch['prompts'].shape[-1]}: forward {fwd_ms:.1f} ms, "
         f"backward {bwd_ms:.1f} ms, AdamW {opt_ms:.1f} ms; a step {wall:.1f} ms ({tf32_label()}), "
         f"{flops / 1e12:.2f} TFLOP of matmuls and convs, {flops / wall / 1e9:.1f} TFLOP/s "
-        f"({100 * flops / wall / 1e9 / (PEAK_FP32_FLOP_PER_S / 1e12):.1f} % of the fp32 peak outside "
+        f"({100 * flops / wall / 1e9 / (costs.device_peaks().fp32_flop_per_s / 1e12):.1f} % of the fp32 peak outside "
         f"the tensor cores)")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -2131,7 +2184,7 @@ def main() -> int:
             compare(name, run_k(), plain(), f"path {path} shape ({b}, {t}, {ch}) d={d}", path=path)
             work = b * t * ch * (1 + ch // 64) * (3 if name == "residual_stack" else 1)
             reps = max(3, min(50, int(2e8 // work)))
-            k_ms, k_wall, p_ms = graph_ms(run_k, reps), time_ms(run_k, reps), time_ms(plain, reps)
+            k_ms, k_wall, p_ms = graph_ms(run_k, reps), events_ms(run_k, reps), events_ms(plain, reps)
             b_ms, b_by = bound_ms(name, b * t, ch, dtype)
             row = {**({"B": b} if batch else {}), "T": t, "C": ch, "d": d, "calls": 1, "ms": round(k_ms, 4),
                    "wall_ms": round(k_wall, 4), "plain_ms": round(p_ms, 4),
@@ -2139,7 +2192,7 @@ def main() -> int:
             extra = ""
             if name == "residual_stack":
                 row["three_unit_ms"] = round(graph_ms(lambda: three_units(x, p, w), reps), 4)
-                row["three_unit_wall_ms"] = round(time_ms(lambda: three_units(x, p, w), reps), 4)
+                row["three_unit_wall_ms"] = round(events_ms(lambda: three_units(x, p, w), reps), 4)
                 extra = (f", three residual_unit launches {row['three_unit_ms']:.4f} ms (graph) / "
                          f"{row['three_unit_wall_ms']:.4f} ms (per call)")
             before = FMA_LOOP_MS.get((DTYPE_NAMES[dtype], name, t, ch, d))
@@ -2166,7 +2219,7 @@ def main() -> int:
                 residual_stack_reference(x, units), f"off-path shape (1, {t}, {ch})")
         k3 = graph_ms(lambda: residual_stack_cuda(x, units, prepared=prepared), 20)
         k2 = graph_ms(lambda: three_units(x, units, prepared), 20)
-        p_ms = time_ms(lambda: residual_stack_reference(x, units), 20)
+        p_ms = events_ms(lambda: residual_stack_reference(x, units), 20)
         b_ms, b_by = bound_ms("residual_stack", t, ch, torch.float32)
         log(f"[time] off-path residual_stack fp32 (1, {t}, {ch}) tile={stack_tile(ch, torch.float32)}: "
             f"kernel {k3:.4f} ms (graph), three residual_unit launches {k2:.4f} ms (graph), plain "
@@ -2207,6 +2260,10 @@ def main() -> int:
     time_path("mesh", runs["mesh"]["calls"], torch.float32)
     log(f"[phase 10] done in {time.perf_counter() - t10:.1f} s (the timing of its shapes included)")
     shutil.rmtree(work, ignore_errors=True)
+
+    # 11. the component benchmark: per-stage device ms, FLOPs and bytes, the
+    # compute floor beside phase 7's wall
+    components_phase(kernels, dev, runs["bench"])
 
     notes = {"A": "one utterance's launches on path A", "B": "one utterance's launches on path B",
              "precompute": "one 17 s utterance's analysis in the precompute step (the encoder at "
@@ -2258,11 +2315,7 @@ def main() -> int:
             "shapes": rows,
         })
     log(json.dumps({"kernels": entries}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
-    log(smi.stdout.strip().splitlines()[0])
+    log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

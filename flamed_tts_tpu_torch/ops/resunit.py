@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from flamed_tts_tpu_torch import kernels
+from flamed_tts_tpu_torch.ops import costs
 from flamed_tts_tpu_torch.ops.conv1d import conv1d
 from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
 
@@ -421,6 +422,11 @@ def residual_stack_cuda(x: torch.Tensor, units, dilations: Sequence[int] = STACK
 
 
 def residual_unit(x: torch.Tensor, p: Dict, dilation: int, prepared: Optional[Dict] = None) -> torch.Tensor:
+    """K2 on a CUDA tensor, its plain version on a CPU one.  While a
+    ``costs.CostCounter`` is active the call counts as one K2 launch."""
+    if costs.counting():
+        return costs.hand_kernels([("residual_unit", x.shape[0] * x.shape[1], x.shape[2])], x.dtype,
+                                  lambda: residual_unit(x, p, dilation, prepared))
     if x.device.type == "cpu":
         return residual_unit_reference(x, p, dilation)
     return residual_unit_cuda(x, p, dilation, prepared)
@@ -433,11 +439,20 @@ def residual_stack(x: torch.Tensor, units, dilations: Sequence[int] = STACK_DILA
     one K2 launch each; a CPU tensor takes the plain chain either way
     (both kernels compute exactly what it computes unit by unit).
     ``prepared`` is ``[prepare_unit(p) for p in units]`` where the caller
-    keeps it; without it the weights are laid out on every launch."""
+    keeps it; without it the weights are laid out on every launch.  While a
+    ``costs.CostCounter`` is active the call counts as the launches the
+    card makes for it, whichever device runs it."""
+    stacked = (fuse and len(units) == 3 and tuple(int(d) for d in dilations) == STACK_DILATIONS
+               and stack_tile(x.shape[2], x.dtype) is not None)
+    if costs.counting():
+        rows = x.shape[0] * x.shape[1]
+        calls = ([("residual_stack", rows, x.shape[2])] if stacked
+                 else [("residual_unit", rows, x.shape[2])] * len(units))
+        return costs.hand_kernels(calls, x.dtype,
+                                  lambda: residual_stack(x, units, dilations, fuse, prepared))
     if x.device.type == "cpu":
         return residual_stack_reference(x, units, dilations)
-    if (fuse and len(units) == 3 and tuple(int(d) for d in dilations) == STACK_DILATIONS
-            and stack_tile(x.shape[2], x.dtype) is not None):
+    if stacked:
         return residual_stack_cuda(x, units, dilations, prepared)
     for i, (p, d) in enumerate(zip(units, dilations)):
         x = residual_unit_cuda(x, p, int(d), prepared[i] if prepared else None)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from flamed_tts_tpu_torch import kernels
+from flamed_tts_tpu_torch.ops import costs
 from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
 
 
@@ -62,6 +63,11 @@ def snake_filtered_cuda(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torc
 
 
 def snake_filtered(x: torch.Tensor, log_alpha: torch.Tensor, log_beta: torch.Tensor) -> torch.Tensor:
+    """K1 on a CUDA tensor, its plain version on a CPU one.  While a
+    ``costs.CostCounter`` is active the call counts as one K1 launch."""
+    if costs.counting():
+        return costs.hand_kernels([("snake_filtered", x.shape[0] * x.shape[1], x.shape[2])], x.dtype,
+                                  lambda: snake_filtered(x, log_alpha, log_beta))
     if x.device.type == "cpu":
         return snake_filtered_reference(x, log_alpha, log_beta)
     return snake_filtered_cuda(x, log_alpha, log_beta)

@@ -6,12 +6,18 @@
   ``dir``; a no-op when ``dir`` is empty or None.
 * ``StageTimer``: named host-clock spans with a per-name mean, for host-side
   breakdowns of the sampling path (``SAMPLE_TIMER`` / ``sample_span``).
+* ``graph_ms`` / ``events_ms``: a call's time on the card, from a CUDA
+  graph's replay (device time, no host launch cost) or from CUDA events
+  around back-to-back calls (the host's launch cost included);
+  ``nvidia_smi_line``: the card's name and power limit, to stand beside
+  every time taken on it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, Optional
@@ -36,6 +42,53 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
         yield
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+
+
+def events_ms(fn, reps: int) -> float:
+    """ms per call of ``fn`` on the card: one warm call, then CUDA events
+    around ``reps`` back-to-back calls; the host's launch cost is in it."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn`` with the host's launch cost taken out:
+    ``reps`` calls captured in one CUDA graph, one replay timed with CUDA
+    events (after a warm call on a side stream and a warm replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def nvidia_smi_line() -> str:
+    """The first card's ``name, power.limit`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {res.stderr}")
+    return res.stdout.strip().splitlines()[0]
 
 
 # Opt-in host-span profiling of the sampling path: a profiling tool
