@@ -19,14 +19,23 @@ Phases (any failure exits non-zero before the last line):
      seed 0, the trained codec in artifacts/codec_r5, a 3 s prompt, 64 + 64
      Euler steps), each with every kernel's launch count set to 0 just
      before and read just after, and time five warm calls of each:
-       A. phonemes -> staged path, fp32, one K2 launch a residual unit;
-       B. text -> frontend -> fused prompt path, bf16 parameters,
-          fuse_blocks=True (K3 where stack_tile admits the block);
+       A. phonemes -> staged path, fp32 at the "highest" matmul precision
+          (flamed_tts_tpu_torch/precision.py), one K2 launch a residual unit;
+       B. text -> frontend -> fused prompt path, bf16 parameters at
+          "default" (bf16 operands in the prior's and the denoiser's
+          matmuls), fuse_blocks=True (K3 where stack_tile admits the block);
+     then path B's utterance at "default" against the same at "highest",
+     the same noise: the durations that differ, and on the "highest"
+     durations the latents' relative error and the decoded wavs' mel-L2
+     (LATENT_REL_TOL, MEL_L2_TOL); no GEMM kernel off the tensor cores in
+     its prior and denoiser stages (profiled); the prior's and prob's
+     parameter bytes;
   4. break a warm call of each path down by stage and by device kernel
      (torch.profiler); check the outputs: a finite wav of tgt_len * 200
      samples, a short utterance on the card against the same on the CPU
-     (plain versions) for each path, with the count of the prompt's RVQ codes
-     that differ between the two, and one forced overflow retry on B;
+     (plain versions) for each path (A at "highest"; B at "default" against
+     the CPU forced to the same arithmetic), with the count of the prompt's
+     RVQ codes that differ between the two, and one forced overflow retry on B;
   5. at each main-path shape, hold the kernel against its plain version
      again and time both beside the kernel's bound: the kernel's device
      time from a CUDA graph replay, and per-call time from CUDA events
@@ -44,7 +53,12 @@ Phases (any failure exits non-zero before the last line):
      to the decodes it reports); the loss on one fixed batch falling over
      20 steps at lr 1e-3, and a warm step of it broken down (forward,
      backward, AdamW; FLOPs; profiler); one deterministic step on the card
-     against the same on the CPU; resume for 2 steps from train_state.pt
+     at "highest" against the same on the CPU, and at "default" (the
+     trainer's): each of its matmul and conv calls replayed on its inputs
+     and incoming gradient against the CPU forced to the card's arithmetic
+     (LAYER_REL; a control with results rounded to bf16 must fail it), and
+     its gradients' departure from the CPU's float32 step against the
+     emulation's (STEP_NOISE_RATIO); resume for 2 steps from train_state.pt
      and serve an utterance from last.npz; then K1 and K2 held against
      their plain versions and timed as in phase 5 at the shapes of one 17 s
      utterance's analysis and of the validation audio's decodes.  The
@@ -57,7 +71,9 @@ Phases (any failure exits non-zero before the last line):
      durations: its JSON line, each timed call's tgt_len, frame bucket and
      audio seconds, frames a phoneme held to bench.FRAMES_PER_PHONEME, the
      five times, the dispatch-floor probe and load1; the kernel launches of
-     one timed call, held to those of its shapes), ``bench_throughput``
+     one timed call, held to those of its shapes; a profiled call's device
+     kernels and its GEMM kernels off the tensor cores; the bench's utterance at
+     "default" against "highest", as path B's in phase 3), ``bench_throughput``
      (batch 4, nfe 128), ``profile_sample`` (its span line; the fused
      call's dispatch and host read must be most of the wall), ``synthesize
      --profile-dir`` (the trace must hold CUDA kernel events, the hand
@@ -237,6 +253,34 @@ CONVFORM_BF16_STEPS = 2
 GRAD_TOL = 1e-5
 GRAD_FUNCTIONS = {"snake_filtered": "SnakeFiltered", "residual_unit": "ResidualUnit",
                   "residual_stack": "ResidualStack"}
+# bf16 serving at the "default" matmul precision against the same call at
+# "highest" (flamed_tts_tpu_torch/precision.py), the same noise and the
+# "highest" run's durations passed to both: the relative latent error and
+# the decoded wavs' mel-L2 bounds of tests/test_bf16_quality.py
+LATENT_REL_TOL, MEL_L2_TOL = 0.05, 2.0
+# a GEMM or implicit-GEMM convolution off the tensor cores: cuBLAS's and
+# cuDNN's float32 "ffma" / "f32f32_f32f32" kernels, CUTLASS's SIMT sgemm,
+# cuDNN's "implicit_convolve_sgemm" (of any type).  None may run in the prior
+# and denoiser stages at "default"
+CUDA_CORE_GEMM = re.compile(r"ffma|simt|sgemm|f32f32_f32f32", re.IGNORECASE)
+# the trainer's step at "default" on the card (bf16 operands), checked two
+# ways.  Each matmul and conv of the prior and the prob, replayed on the
+# inputs and the incoming gradient it had in that step, against the CPU
+# with the card's arithmetic forced onto it (precision.bf16_on_cpu: the
+# same code, the same roundings of the same values): the output and the
+# input and weight gradients within LAYER_REL relative L2 of the CPU's
+# (only the order of the float32 sums differs, ~1e-6 relative); the same
+# replay with every product's result rounded to bf16, as torch.autocast
+# rounds them (a half bf16 step, ~1.5e-3 relative L2), must exceed it at
+# every layer.  The whole step against the CPU's float32 step: bf16
+# operands depart from float32 by a noise that the card and the CPU's
+# emulation share in distribution (over 1e8 gradient elements the two
+# departures' sizes agree closely), so the card's gradients' relative L2
+# departure is held to STEP_NOISE_RATIO times the emulation's: above, a
+# product rounded or computed wrong; below, float32 kept where bf16 was
+# asked for.  PERF.md section 6 has what the card read
+LAYER_REL = 3e-5
+STEP_NOISE_RATIO = (0.5, 2.0)
 # PyTorch's own TF32 switches (matmul, cuDNN), read before main() turns TF32
 # off for the comparisons: the precompute and the trainer are timed under
 # these, as whoever starts them on their own runs them
@@ -270,6 +314,95 @@ def tf32(matmul: bool, cudnn: bool):
 def tf32_label() -> str:
     return (f"TF32 matmul {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}, cuDNN "
             f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}")
+
+
+@contextlib.contextmanager
+def results_in_bf16():
+    """precision.py's products with their float32 results rounded to bf16,
+    as torch.autocast gives them: the control that the "default" bounds
+    must refuse."""
+    from flamed_tts_tpu_torch import precision
+
+    mm, bmm = precision._mm, precision._bmm
+    precision._mm = lambda *a: mm(*a).to(torch.bfloat16).float()
+    precision._bmm = lambda *a: bmm(*a).to(torch.bfloat16).float()
+    try:
+        yield
+    finally:
+        precision._mm, precision._bmm = mm, bmm
+
+
+def capture_products(modules):
+    """Hooks on every precision.Linear / Conv1d under ``modules`` (name ->
+    module): each call's input, output and incoming gradient, appended to
+    the returned list as [name, layer, x, y, g] (g once the backward has
+    run), and the hooks' handles."""
+    from flamed_tts_tpu_torch import precision
+
+    calls, handles = [], []
+    for part, root in modules.items():
+        for name, layer in root.named_modules():
+            if not isinstance(layer, (precision.Linear, precision.Conv1d)):
+                continue
+
+            def hook(layer, inputs, output, key=f"{part}.{name}"):
+                rec = [key, layer, inputs[0].detach().float().clone(), output.detach().clone(), None]
+                calls.append(rec)
+                if output.requires_grad:
+                    output.register_hook(lambda g: rec.__setitem__(4, g.detach().clone()))
+
+            handles.append(layer.register_forward_hook(hook))
+    return calls, handles
+
+
+def replay_product(layer, weight, bias, x, g, device):
+    """One product's forward and backward on ``device`` at the process's
+    precision, from the given parameters, input and incoming gradient:
+    [output, input gradient, weight gradient]."""
+    from flamed_tts_tpu_torch import precision
+
+    def leaf(t):
+        return None if t is None else t.detach().to(device, copy=True).requires_grad_()
+
+    x, w, b = leaf(x), leaf(weight), leaf(bias)
+    if isinstance(layer, precision.Conv1d):
+        y = precision.conv1d(x, w, b, layer.padding[0])
+    else:
+        y = precision.linear(x, w, b)
+    y.backward(g.to(device))
+    return [y.detach().cpu(), x.grad.cpu(), w.grad.cpu()]
+
+
+def replay_products(calls, start, dev):
+    """Each captured product call (``capture_products``) replayed from the
+    ``start`` parameters on ``dev``, plainly and with its results rounded to
+    bf16, and on the CPU with ``dev``'s arithmetic forced onto it.  Returns
+    (the worst rel L2 of the output, input and weight gradients against the
+    CPU's, and of the step's own output against the replay's, with that
+    call's name; the control's least per call; the number of calls)."""
+    from flamed_tts_tpu_torch.precision import bf16_on_cpu
+
+    worst, least, n = (0.0, ""), float("inf"), 0
+    for key, layer, x, y, g in calls:
+        if g is None or not bool(g.any()):
+            continue  # a product no gradient reached
+        part, name = key.split(".", 1)
+        args = (layer, start[part][f"{name}.weight"], start[part].get(f"{name}.bias"), x, g)
+        card = replay_product(*args, dev)
+        with results_in_bf16():
+            ctl = replay_product(*args, dev)
+        with bf16_on_cpu():
+            cpu = replay_product(*args, torch.device("cpu"))
+        errs = [rel_l2(y.cpu(), card[0])] + [rel_l2(a, c) for a, c in zip(card, cpu)]
+        if max(errs) > worst[0]:
+            worst = (max(errs), f"{key} {tuple(x.shape)}")
+        least = min(least, max(rel_l2(a, c) for a, c in zip(ctl, cpu)))
+        n += 1
+    return worst, least, n
+
+
+def rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
 
 
 def bound_ms(name: str, t: int, c: int, dtype: torch.dtype) -> tuple:
@@ -382,6 +515,7 @@ def training_phase(kernels, compare, codec, dev, tmp: str) -> dict:
     from flamed_tts_tpu_torch.ops.resample import snake_filtered_reference
     from flamed_tts_tpu_torch.ops.resunit import residual_unit_cuda, residual_unit_reference
     from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
+    from flamed_tts_tpu_torch.precision import bf16_on_cpu, matmul_precision
     from flamed_tts_tpu_torch.precompute import analyze_utterance, precompute
     from flamed_tts_tpu_torch.train import cli as train_cli
     from flamed_tts_tpu_torch.train.step import batch_to_device, init_train_state, train_step
@@ -540,8 +674,9 @@ def training_phase(kernels, compare, codec, dev, tmp: str) -> dict:
     del model, state, on_card
     torch.cuda.empty_cache()
 
-    # 6.5 one deterministic step (dropout rates 0) on the card, TF32 off,
-    # and on the CPU, from the same parameters and the same draws.  eps 1e-4 in
+    # 6.5 one deterministic step (dropout rates 0) on the card, at "highest"
+    # (TF32 off) and at "default", and on the CPU, from the same parameters
+    # and the same draws.  eps 1e-4 in
     # place of 1e-9: a parameter whose gradient is zero in exact
     # arithmetic (the attention's key biases, the depthwise conv biases
     # before a per-channel norm) holds rounding noise that differs
@@ -560,21 +695,39 @@ def training_phase(kernels, compare, codec, dev, tmp: str) -> dict:
     draws = {"pva_t": nrng.rand(b, 1), "dur_noise": nrng.randn(b, l),
              "sil_noise": nrng.randn(b, l), "prob_t": nrng.rand(b, lf, 1),
              "prob_noise": nrng.randn(b, lf, 256)}
-    cpu_model = Flamed(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
-    params = {"prior": cpu_model.prior.state_dict(), "prob": cpu_model.prob.state_dict()}
-    start = {k: {n: v.clone() for n, v in sd.items()} for k, sd in params.items()}
-    card_model = Flamed(cfg, params=params, device=dev)
+    params = Flamed(cfg, device="cpu", generator=torch.Generator().manual_seed(1))
+    start = {k: {n: v.clone() for n, v in getattr(params, k).state_dict().items()}
+             for k in ("prior", "prob")}
+    del params
     out = {}
-    for where, model in (("card", card_model), ("cpu", cpu_model)):
+    # each run from the same start: the card at "highest" and at "default"
+    # (the trainer's, its products captured), the CPU at "highest" (float32)
+    # and at "default" with the card's arithmetic forced onto it
+    products = []
+    for where, precision in (("card", "highest"), ("card default", "default"), ("cpu", "highest"),
+                             ("cpu default", "default")):
+        model = Flamed(cfg, params={k: {n: v.clone() for n, v in sd.items()} for k, sd in start.items()},
+                       device="cpu" if where.startswith("cpu") else dev)
         device = model.device
         state = init_train_state(model.prior, model.prob, cfg["optimizer_cfg"], seed=0)
-        metrics = train_step(state, batch_to_device(batch, device),
-                             draws={k: torch.as_tensor(v, dtype=torch.float32, device=device)
-                                    for k, v in draws.items()})
+        handles = []
+        if where == "card default":
+            products, handles = capture_products({"prior": model.prior, "prob": model.prob})
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(matmul_precision(precision))
+            if where == "cpu default":
+                stack.enter_context(bf16_on_cpu())
+            metrics = train_step(state, batch_to_device(batch, device),
+                                 draws={k: torch.as_tensor(v, dtype=torch.float32, device=device)
+                                        for k, v in draws.items()})
+        for h in handles:
+            h.remove()
         out[where] = ({k: float(v) for k, v in metrics.items()},
                       {k: {n: v.float().cpu() for n, v in sd.items()} for k, sd in
-                       (("prior", model.prior.state_dict()), ("prob", model.prob.state_dict()))})
-    (mg, pg), (mc, pc) = out["card"], out["cpu"]
+                       (("prior", model.prior.state_dict()), ("prob", model.prob.state_dict()))},
+                      torch.cat([p.grad.float().flatten().cpu() for p in state.parameters()]))
+        del model, state
+    (mg, pg, _), (mc, pc, gc) = out["card"], out["cpu"]
     loss_rel = max(abs(mg[k] - mc[k]) / abs(mc[k]) for k in mc if k != "grad_norm")
     norm_rel = abs(mg["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"]
     worst, moved = 0.0, 0.0
@@ -583,13 +736,47 @@ def training_phase(kernels, compare, codec, dev, tmp: str) -> dict:
             excess = (pg[part][n] - vc).abs() - (1e-5 + 1e-4 * vc.abs())
             worst = max(worst, float(excess.max()))
             moved = max(moved, float((vc - start[part][n]).abs().max()))
-    log(f"[train card vs CPU] one step, batch of 2 (phonemes {l}, frames {lf}): losses max rel "
+    log(f"[train card vs CPU] one step at \"highest\", batch of 2 (phonemes {l}, frames {lf}): losses max rel "
         f"diff {loss_rel:.3e} (tol 1e-4), grad_norm {mg['grad_norm']:.4f} vs {mc['grad_norm']:.4f}, "
         f"rel {norm_rel:.3e} (tol 1e-3); parameters after AdamW: worst excess over 1e-5 abs + "
         f"1e-4 rel {worst:.3e} (<= 0 passes), largest move {moved:.3e}")
     if not (loss_rel <= 1e-4 and norm_rel <= 1e-3 and worst <= 0.0 and moved > 1e-5):
         raise AssertionError("a training step on the card disagrees with the same on the CPU")
-    del card_model, cpu_model, state
+
+    # the "default" step's products, replayed: the card against the CPU's
+    # emulation, and the control (results rounded to bf16) against the same
+    with matmul_precision("default"):
+        worst_layer, control_least, n_replayed = replay_products(products, start, dev)
+    del products
+    log(f"[train card vs CPU] the \"default\" step's {n_replayed} matmul / conv calls replayed on their "
+        f"inputs and incoming gradients, card against the CPU's emulation (output, input and weight "
+        f"gradients; and the step's own output): worst rel L2 {worst_layer[0]:.3e} at {worst_layer[1]} "
+        f"(tol {LAYER_REL}); the control with results rounded to bf16: least per call {control_least:.3e} "
+        f"(must exceed {LAYER_REL})")
+    if not (n_replayed > 0 and worst_layer[0] <= LAYER_REL):
+        raise AssertionError("a product of the \"default\" step on the card disagrees with the CPU's "
+                             "emulation of the card's arithmetic")
+    if not control_least > LAYER_REL:
+        raise AssertionError("the per-product bound admits results rounded to bf16")
+
+    (md, _, gd), (me, _, ge) = out["card default"], out["cpu default"]
+
+    def off(m, g):
+        """(losses' max rel diff, grad norm rel diff, gradients' rel L2
+        diff) against the CPU's float32 step."""
+        return (max(abs(m[k] - mc[k]) / abs(mc[k]) for k in mc if k != "grad_norm"),
+                abs(m["grad_norm"] - mc["grad_norm"]) / mc["grad_norm"], rel_l2(g, gc))
+
+    card_off, emul_off = off(md, gd), off(me, ge)
+    ratio = card_off[2] / emul_off[2]
+    log("[train card vs CPU] off the CPU's float32 step (losses max rel, grad norm rel, gradients rel "
+        f"L2): the card at \"default\" {', '.join(f'{d:.3e}' for d in card_off)}; the CPU's emulation "
+        f"{', '.join(f'{d:.3e}' for d in emul_off)}; gradients' ratio {ratio:.3f} "
+        f"(tol {STEP_NOISE_RATIO[0]}-{STEP_NOISE_RATIO[1]}); the card's gradients against the "
+        f"emulation's {rel_l2(gd, ge):.3e} rel L2 (the sum order's flipped roundings, cascaded)")
+    if not STEP_NOISE_RATIO[0] <= ratio <= STEP_NOISE_RATIO[1]:
+        raise AssertionError("the \"default\" step on the card departs from the CPU's float32 step "
+                             "otherwise than bf16 operands take it")
     torch.cuda.empty_cache()
 
     # 6.6 resume for two more steps, then serve from last.npz
@@ -682,6 +869,11 @@ def bench_phase(kernels, dev) -> dict:
         f"{sum(e.count for e in events)} device kernels/copies")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
         log(f"[bench]   {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    core_gemm = {e.key[:90]: round(e.self_device_time_total / 1e3, 3) for e in events
+                 if CUDA_CORE_GEMM.search(e.key)}
+    log(f"[bench] the profiled call's GEMM kernels off the tensor cores (ms; the codec's): "
+        f"{json.dumps(core_gemm)}")
+    precision_check("bench", model, codec, model._get_frontend()(bench.TEXT)[0], bench.prompt_wav(), dev)
     elapsed("bench")
 
     # 7.2 the throughput bench, batch 4 at nfe 128 (it prints its JSON line)
@@ -1737,6 +1929,7 @@ def train_step_breakdown(state, on_card, batch) -> None:
     top kernels from torch.profiler over one step."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from flamed_tts_tpu_torch.precision import get_matmul_precision
     from flamed_tts_tpu_torch.train.losses import compute_losses
     from flamed_tts_tpu_torch.train.step import train_step
 
@@ -1751,26 +1944,115 @@ def train_step_breakdown(state, on_card, batch) -> None:
     losses, fwd_ms = timed(lambda: compute_losses(state.prior, state.prob, on_card, state.generator))
     _, bwd_ms = timed(lambda: losses["total_loss"].backward())
     _, opt_ms = timed(state.optimizer.step)
-    with FlopCounterMode(display=False) as counter:
+    with FlopCounterMode(display=False, custom_mapping=costs.FLOP_FORMULAS) as counter:
         train_step(state, on_card)
     flops = counter.get_total_flops()
     _, wall = timed(lambda: train_step(state, on_card))
+    precision = get_matmul_precision()
+    dtype = torch.bfloat16 if precision == "default" else torch.float32
+    share = 100 * flops / wall / 1e9 / (costs.device_peaks().flop_per_s(dtype) / 1e12)
     log(f"[train breakdown] batch {batch['phonemes'].shape[0]}, frames {batch['codes'].shape[-1]}, phonemes "
         f"{batch['phonemes'].shape[-1]}, prompt {batch['prompts'].shape[-1]}: forward {fwd_ms:.1f} ms, "
-        f"backward {bwd_ms:.1f} ms, AdamW {opt_ms:.1f} ms; a step {wall:.1f} ms ({tf32_label()}), "
-        f"{flops / 1e12:.2f} TFLOP of matmuls and convs, {flops / wall / 1e9:.1f} TFLOP/s "
-        f"({100 * flops / wall / 1e9 / (costs.device_peaks().fp32_flop_per_s / 1e12):.1f} % of the fp32 peak outside "
-        f"the tensor cores)")
+        f"backward {bwd_ms:.1f} ms, AdamW {opt_ms:.1f} ms; a step {wall:.1f} ms (matmul precision "
+        f"{precision}, {tf32_label()}), {flops / 1e12:.2f} TFLOP of matmuls and convs, "
+        f"{flops / wall / 1e9:.1f} TFLOP/s ({share:.2f} % of the {DTYPE_NAMES[dtype]} peak)")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         _, wall = timed(lambda: train_step(state, on_card))
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e3
+    core_gemm = sum(e.self_device_time_total for e in events if CUDA_CORE_GEMM.search(e.key)) / 1e3
     log(f"[train breakdown] profiled step {wall:.1f} ms: device busy {busy:.1f} ms "
-        f"({100 * busy / wall:.1f} %), {sum(e.count for e in events)} device kernels/copies")
+        f"({100 * busy / wall:.1f} %), {sum(e.count for e in events)} device kernels/copies; "
+        f"{core_gemm:.2f} ms in GEMM kernels off the tensor cores")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[train breakdown]   {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+
+
+def precision_check(label: str, model, codec, ids: np.ndarray, wav_in: np.ndarray, dev) -> dict:
+    """One utterance of a cast model (bf16 storage) through the staged
+    path's two stages at "default" and at "highest" with the same noise:
+    the durations that differ between the two first stages, then both
+    second stages on the "highest" durations (each on its own first
+    stage's encoder output): the latents' relative error and the decoded
+    wavs' mel-L2.  Then the two stages alone (no codec) profiled at
+    "default": no GEMM kernel off the tensor cores may run.  Prints the prior's and
+    the prob's parameter bytes beside float32 storage's."""
+    from flamed_tts_tpu_torch.ops.melspec import mel_spectrogram
+    from flamed_tts_tpu_torch.precision import bf16_on_cpu, matmul_precision
+    from flamed_tts_tpu_torch.runtime.buckets import pick_bucket
+
+    sampler = model.sampler
+    codes, timbre = codec.encode_prompt(wav_in)
+    l_in, p_in = ids.shape[1], codes.shape[-1]
+    l_bucket = pick_bucket(l_in, sampler.phoneme_buckets)
+    p_bucket = pick_bucket(p_in, sampler.prompt_buckets)
+    phonemes = np.zeros((1, l_bucket), np.int64)
+    phonemes[:, :l_in] = ids
+    prompts = np.full((1, codes.shape[0], p_bucket), model.vocab_size, np.int64)
+    prompts[0, :, :min(p_in, p_bucket)] = codes[:, :p_bucket]
+    on = {k: torch.as_tensor(v, device=dev) for k, v in (
+        ("phonemes", phonemes), ("src_lens", np.array([l_in])), ("prompts", prompts),
+        ("prompt_lens", np.array([min(p_in, p_bucket)])), ("timbres", timbre[None].astype(np.float32)))}
+    rng = np.random.RandomState(21)
+    noise = {"dur": rng.randn(1, l_bucket).astype(np.float32), "sil": rng.randn(1, l_bucket).astype(np.float32)}
+
+    def stage1(name):
+        with matmul_precision(name):
+            return sampler._stage1(on["phonemes"], on["src_lens"], noise, None, 64, 0.3)
+
+    def stage2(name, first, f_bucket, with_codec=True):
+        with matmul_precision(name):
+            return sampler._stage2(first[0], durs[0], durs[1], on["src_lens"], on["prompts"],
+                                   on["prompt_lens"], f_bucket, on["timbres"], noise, None, 64, 0.3,
+                                   codec if with_codec else None)
+
+    first = {name: stage1(name) for name in ("highest", "default")}
+    durs = first["highest"][1:3]
+    valid = slice(0, l_in)
+    flips = [int((first["highest"][i][0, valid] != first["default"][i][0, valid]).sum()) for i in (1, 2)]
+    tgt = [int(first[k][3][0]) for k in ("highest", "default")]
+    f_bucket = pick_bucket(tgt[0], sampler.frame_buckets)
+    noise["latents"] = rng.randn(1, f_bucket, 256).astype(np.float32)
+    second = {name: stage2(name, first[name], f_bucket) for name in ("highest", "default")}
+    n = int(second["highest"][3][0])
+    lat = {k: v[0][0, :n].float().cpu().numpy() for k, v in second.items()}
+    rel = float(np.linalg.norm(lat["default"] - lat["highest"]) / np.linalg.norm(lat["highest"]))
+    wav = {k: v[5][:, :n * codec.hop, 0].float().cpu() / 32767.0 for k, v in second.items()}
+    mel = {k: mel_spectrogram(w).numpy() for k, w in wav.items()}
+    mel_l2 = float(np.sqrt(((mel["default"] - mel["highest"]) ** 2).sum(axis=1)).mean())
+    finite = all(np.isfinite(x).all() for x in (*lat.values(), *mel.values()))
+
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        stage2("default", stage1("default"), f_bucket, with_codec=False)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    core_gemm = [e.key for e in events if CUDA_CORE_GEMM.search(e.key)]
+    gemm_ms = sum(e.self_device_time_total for e in events if "gemm" in e.key.lower() or "nvjet" in e.key)
+    params = [p for m in (model.prior, model.prob) for p in m.parameters()]
+    n_bytes, n_params = sum(p.numel() * p.element_size() for p in params), sum(p.numel() for p in params)
+    log(f"[precision {label}] bf16 \"default\" against \"highest\", the same noise ({l_in} phonemes, "
+        f"nfe 64 + 64): {flips[0]} phone and {flips[1]} silence durations of {l_in} differ, tgt_len "
+        f"{tgt[1]} vs {tgt[0]}; on the \"highest\" durations (tgt_len {n}, bucket {f_bucket}): latents "
+        f"rel L2 {rel:.3e} (tol {LATENT_REL_TOL}), codec mel-L2 of the decoded wavs {mel_l2:.4f} "
+        f"(tol {MEL_L2_TOL})")
+    log(f"[precision {label}] the prior and denoiser stages at \"default\" (profiled, no codec): "
+        f"{sum(e.count for e in events)} device kernels/copies, {gemm_ms / 1e3:.2f} ms in GEMM kernels, "
+        f"GEMM kernels off the tensor cores {core_gemm or 'none'}; top: " + "; ".join(
+            f"{e.self_device_time_total / 1e3:.2f} ms x{e.count} {e.key[:60]}"
+            for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]))
+    log(f"[precision {label}] prior + prob parameters on the card: {n_bytes / 1e6:.1f} MB "
+        f"({', '.join(sorted({str(p.dtype) for p in params}))}; "
+        f"{n_params / 1e6:.1f} M parameters), {4 * n_params / 1e6:.1f} MB in float32 storage")
+    if not (finite and rel < LATENT_REL_TOL and mel_l2 < MEL_L2_TOL and not core_gemm
+            and n_bytes == 2 * n_params):
+        raise AssertionError(f"precision {label}: latents rel {rel}, mel-L2 {mel_l2}, finite {finite}, "
+                             f"GEMM kernels off the tensor cores {core_gemm}, {n_bytes} parameter bytes")
+    return {"flips": flips, "latent_rel": rel, "mel_l2": mel_l2, "param_bytes": n_bytes}
 
 
 def breakdown(label: str, model, codec, wav_in, sample_kwargs: dict) -> None:
@@ -1866,6 +2148,7 @@ def main() -> int:
                                                   residual_unit_reference, stack_smem_bytes,
                                                   stack_tile, unit_smem_bytes)
     from flamed_tts_tpu_torch.ops.snake import snake_filtered_cuda
+    from flamed_tts_tpu_torch.precision import bf16_on_cpu, matmul_precision
 
     dev = torch.device("cuda")
     log("device:", torch.cuda.get_device_name(0), "| torch", torch.__version__, "| cuda", torch.version.cuda)
@@ -2070,7 +2353,10 @@ def main() -> int:
     kwargs_a = {"phonemes": PHONEMES, "fused": False}
     kwargs_b = {"text": TEXT}
     log(f"[main B] text {TEXT!r}: {model_b._get_frontend()(TEXT)[0].shape[1]} phonemes")
-    run_a = drive("A", model, codec, wav_in, kwargs_a, kernels)
+    # path A is fp32 serving, at "highest" as the root scripts run fp32; path
+    # B bf16 serving at the process's "default" (flamed_tts_tpu_torch/precision.py)
+    with matmul_precision("highest"):
+        run_a = drive("A", model, codec, wav_in, kwargs_a, kernels)
     run_b = drive("B", model_b, codec_b, wav_in, kwargs_b, kernels)
     for name in ("snake_filtered", "residual_unit"):
         if run_a["launches"][name] == 0:
@@ -2081,8 +2367,10 @@ def main() -> int:
         raise AssertionError(f"path B launches {run_b['launches']}: expected K1 = 10, K3 > 0, "
                              "K2 = 3 * (8 - K3)")
 
-    breakdown("A", model, codec, wav_in, kwargs_a)
+    with matmul_precision("highest"):
+        breakdown("A", model, codec, wav_in, kwargs_a)
     breakdown("B", model_b, codec_b, wav_in, kwargs_b)
+    precision_check("B", model_b, codec_b, model_b._get_frontend()(TEXT)[0], wav_in, dev)
 
     # 4. a short utterance on the card against the same on the CPU, per path
     nrng = np.random.RandomState(5)
@@ -2092,14 +2380,15 @@ def main() -> int:
     params = {"prior": model.prior.state_dict(), "prob": model.prob.state_dict()}
     cpu_model = Flamed(cfg, params=params, device="cpu")
     cpu_codec = FaCodec.from_pretrained(CODEC_DIR, device="cpu")
-    g = model.sample(codec=codec, noise=noise, phonemes=PHONEMES[:10], fused=False, **short)
+    with matmul_precision("highest"):
+        g = model.sample(codec=codec, noise=noise, phonemes=PHONEMES[:10], fused=False, **short)
     c = cpu_model.sample(codec=cpu_codec, noise=noise, phonemes=PHONEMES[:10], fused=False, **short)
     err = float(np.abs(g["wav"] - c["wav"]).max()) if g["wav"].shape == c["wav"].shape else math.inf
     tol = 1e-5 + 1.0 / 32767
     # the prompt's RVQ codes are an argmax over the encoder's output: the one
     # discrete decision between the fp32 kernels and the wav
     codes_g, codes_c = codec.encode_prompt(short["prompt_raw"])[0], cpu_codec.encode_prompt(short["prompt_raw"])[0]
-    log(f"[reference A] short utterance card vs CPU: tgt_len {g['tgt_len'][0]} vs {c['tgt_len'][0]}, "
+    log(f"[reference A] short utterance card vs CPU, \"highest\": tgt_len {g['tgt_len'][0]} vs {c['tgt_len'][0]}, "
         f"{int((codes_g != codes_c).sum())} of the prompt's {codes_g.size} RVQ codes differ, "
         f"wav max abs diff {err:.3e} (tol {tol:.3e}: fp32, cuBLAS/cuDNN and the kernels vs CPU "
         f"summation order, sin^2 and split-TF32 products, 1e-5, then one step of the int16 PCM either "
@@ -2112,8 +2401,11 @@ def main() -> int:
     cpu_codec.fuse_blocks = True
     for m in (model_b, cpu_model):
         m.sampler._ratio_history.clear()  # both take a first call's speculative bucket
+    # the card at "default" against the same arithmetic on the CPU (bf16
+    # operands, float32 sums; only the order of the sums differs)
     g = model_b.sample(codec=codec_b, noise=noise, text="Good morning.", **short)
-    c = cpu_model.sample(codec=cpu_codec, noise=noise, text="Good morning.", **short)
+    with bf16_on_cpu():
+        c = cpu_model.sample(codec=cpu_codec, noise=noise, text="Good morning.", **short)
     n = int(g["tgt_len"][0])
     lat_g, lat_c = g["latents"][0, :n].float().cpu().numpy(), c["latents"][0, :n].numpy()
     rel = float(np.linalg.norm(lat_g - lat_c) / np.linalg.norm(lat_c))
@@ -2122,10 +2414,11 @@ def main() -> int:
     wav_g = codec_b.decode(g["latents"], timbre.to(dev)).float().cpu().numpy()
     wav_c = cpu_codec.decode(g["latents"].cpu(), timbre).float().numpy()
     err, peak = float(np.abs(wav_g - wav_c).max()), float(np.abs(wav_c).max())
-    log(f"[reference B] short bf16 utterance card vs CPU: tgt_len {g['tgt_len'][0]} vs "
-        f"{c['tgt_len'][0]}, frame bucket {g['frame_bucket']} vs {c['frame_bucket']}, latents rel "
-        f"L2 diff {rel:.3e} (tol 0.05: the bf16 prompt encoders on the two devices round apart "
-        f"and may pick other RVQ codes for some frames); bf16 decoder on the same latents: wav "
+    log(f"[reference B] short bf16 utterance card vs CPU, both \"default\" arithmetic: tgt_len "
+        f"{g['tgt_len'][0]} vs {c['tgt_len'][0]}, frame bucket {g['frame_bucket']} vs "
+        f"{c['frame_bucket']}, latents rel L2 diff {rel:.3e} (tol 0.05: the bf16 prompt encoders on "
+        f"the two devices round apart and may pick other RVQ codes for some frames, and a bf16 "
+        f"operand near a rounding edge rounds apart in another sum order); bf16 decoder on the same latents: wav "
         f"max abs diff {err:.3e}, peak {peak:.3f} (tol 0.1 * peak, about 13 bf16 steps there: "
         f"bf16 activations through 27 rounding stages, where one flipped rounding spreads "
         f"through the next conv)")

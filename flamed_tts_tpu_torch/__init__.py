@@ -12,3 +12,5 @@ io; on CPU tensors the same functions run their plain PyTorch versions.
 Entry points: ``models.flamed.Flamed(cfg, params, device).sample(...)``
 and the CLI ``python -m flamed_tts_tpu_torch.synthesize``.
 """
+
+from flamed_tts_tpu_torch.config import load_config, load_yaml  # noqa: F401

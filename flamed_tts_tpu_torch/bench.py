@@ -15,10 +15,11 @@ codec decode in the fused call -> host wav).  The weights are random
 (``torch.Generator`` seeded 0) at the full width of ``configs/*.yaml``, with
 the duration and silence heads pinned (``pin_durations``) so that an
 utterance gets the 6-7 frames a phoneme of a trained model.  ``BENCH_PRECISION``
-is ``bf16`` (the default: the model's and the codec's parameters rounded to
-bfloat16) or ``fp32`` (TF32 off).  With no card the run prints an
-``"error": "gpu_unavailable"`` line and exits 2; ``--device cpu`` runs the
-plain PyTorch path on the CPU instead.
+is ``bf16`` (the default: the model's and the codec's parameters stored in
+bfloat16, at the ``"default"`` matmul precision of ``precision.py``) or
+``fp32`` (float32 parameters at ``"highest"``, as the root bench sets it).
+With no card the run prints an ``"error": "gpu_unavailable"`` line and exits
+2; ``--device cpu`` runs the plain PyTorch path on the CPU instead.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from flamed_tts_tpu_torch.config import load_default_config
 from flamed_tts_tpu_torch.device import resolve_device
 from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
 from flamed_tts_tpu_torch.models.flamed import Flamed
+from flamed_tts_tpu_torch.precision import set_matmul_precision
 
 METRIC = "rtf_single_utt_nfe64"
 NSTEPS_DURGEN = 64
@@ -105,7 +107,7 @@ def pin_durations(model: Flamed) -> None:
 def build(cfg: Dict, precision: str, device, cast_codec: bool = True):
     """(model, codec): random prior/prob and codec weights from generators
     seeded 0, the durations pinned, and with ``precision`` bf16 the model's
-    (and with ``cast_codec`` the codec's) parameters rounded to bfloat16.
+    (and with ``cast_codec`` the codec's) parameters stored in bfloat16.
     The pin comes before the rounding, so the pinned values are rounded as
     the root bench's (which pins bfloat16 leaves) are."""
     if precision not in ("bf16", "fp32"):
@@ -224,8 +226,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     device = resolve_device(args.device)
     precision = os.environ.get("BENCH_PRECISION", "bf16")
     if precision == "fp32":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        set_matmul_precision("highest")
 
     model, codec = build(load_default_config(), precision, device)
     run = make_run(model, codec, prompt_wav())

@@ -21,7 +21,9 @@ whose capture fails, is timed by CUDA events around N back-to-back calls
 (``events`` rows, the host's launch cost included).  On the CPU
 (``--device cpu``) ``time.perf_counter`` over N calls (``host`` rows).
 TF32 is off for the run (matmuls and cuDNN), so float32 arithmetic is
-float32 and the float32 peak bounds it.
+float32 and the float32 peak bounds it.  The rows run at the matmul
+precision ``Flamed.sample`` runs at for ``--dtype`` (``precision.py``):
+``"default"`` for bf16, ``"highest"`` for fp32.
 
 Counting.  A stage's FLOPs are ``FlopCounterMode``'s (matmul, convolution,
 attention) plus the hand kernels' analytic count (``ops/costs.py``), and
@@ -36,9 +38,9 @@ is wrong, and the tool raises.
 
 bf16 is the port's serving precision: the codec's parameters and
 activations in bfloat16 (K1 / K2 bfloat16 io, cuDNN bfloat16 convs), the
-prior's and the denoiser's weights rounded to bfloat16 with float32
-activations (``Flamed.cast_inference_params``), so their rows compute in
-float32 under either --dtype.
+prior's and the denoiser's weights stored in bfloat16 with float32
+activations (``Flamed.cast_inference_params``), their matmuls and convs on
+bfloat16 operands with float32 accumulation on the card.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from flamed_tts_tpu_torch.ops.conv1d import conv1d, conv_transpose1d
 from flamed_tts_tpu_torch.ops.length_regulator import length_regulate
 from flamed_tts_tpu_torch.ops.resunit import residual_unit
 from flamed_tts_tpu_torch.ops.snake import snake_filtered
+from flamed_tts_tpu_torch.precision import get_matmul_precision, matmul_precision
 from flamed_tts_tpu_torch.utils.profiling import events_ms, graph_ms, nvidia_smi_line
 
 N_ITERS = 50  # calls a timing; the JAX tool's n = 10 and 20 rows take N_ITERS // 5 and 2 * N_ITERS // 5
@@ -74,6 +77,8 @@ LSRC = 64  # phonemes
 PROMPT_FRAMES = 240  # a 3 s prompt
 TEMPERATURE = 0.3  # the PVA flow's, as the JAX tool's
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+# the matmul precision Flamed.sample runs at for each --dtype (bench.py, synthesize.py)
+PRECISION_OF = {"bf16": "default", "fp32": "highest"}
 SECTIONS = ("codec", "pieces", "prior", "convforms", "mfu")
 
 
@@ -497,7 +502,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     switches = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     try:
-        with torch.no_grad():
+        with torch.no_grad(), matmul_precision(PRECISION_OF[args.dtype]):
             return _run(which, dtype, args, device)
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = switches
@@ -506,15 +511,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 def _run(which: List[str], dtype: torch.dtype, args, device: torch.device) -> Dict:
     bench = Bench(device, dtype)
     head = {"device": device.type, "dtype": args.dtype, "batch": args.batch, "nfe": args.nfe,
-            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
-                     "cudnn": torch.backends.cudnn.allow_tf32}}
+            "precision": get_matmul_precision()}
     if bench.on_card:
         head.update(card=nvidia_smi_line(), graph_floor_ms=graph_floor_ms(),
                     peaks={"flop_per_s": bench.peaks.flop_per_s(dtype),
                            "bytes_per_s": bench.peaks.bytes_per_s})
-        print(f"[bench_components] {head['card']} | torch {torch.__version__} | {args.dtype}, TF32 "
-              f"matmul off, cuDNN off | a captured call of one trivial kernel: "
-              f"{head['graph_floor_ms']:.5f} ms (the floor of a graph row)", flush=True)
+        print(f"[bench_components] {head['card']} | torch {torch.__version__} | {args.dtype}, matmul "
+              f"precision {head['precision']}, TF32 matmul off, cuDNN off | a captured call of one "
+              f"trivial kernel: {head['graph_floor_ms']:.5f} ms (the floor of a graph row)", flush=True)
     else:
         print(f"[bench_components] the CPU ({args.dtype}): host times, no device metric", flush=True)
     print("[bench_components] FLOPs: matmul/conv/attention (FlopCounterMode) + the hand kernels' "

@@ -10,7 +10,8 @@ audio seconds a batch (audio seconds = the sum of the batch's tgt_len / 80
 frames a second).  ``BENCH_BATCH`` (default 4) utterances of eight fixed
 texts go through ``Flamed.sample_batch`` with distinct sine prompts, each
 encoded once by ``codec.encode_prompt`` (the prompt-feature cache of the
-metadata mode); the model's parameters are rounded to bfloat16 and the
+metadata mode); the model's parameters are stored in bfloat16 (the
+``"default"`` matmul precision, as the root script runs) and the
 durations pinned as in ``bench.py``.  ``BENCH_NFE`` sets nsteps-denoiser
 (default 128).
 """

@@ -112,17 +112,20 @@ class Flamed:
         return sum(p.numel() for m in (self.prior, self.prob) for p in m.parameters())
 
     def cast_inference_params(self, dtype: torch.dtype = torch.bfloat16) -> None:
-        """Round the prior's and the denoiser's float parameters to ``dtype``.
+        """Store the prior's and the denoiser's float parameters in ``dtype``.
 
-        As in the JAX package the activations and the accumulation stay
-        float32 (a float32 input against a bfloat16 parameter is promoted
-        to float32 there), so only the stored values change.  Here they are
-        kept in float32 storage after the rounding: the arithmetic is then
-        the same as before with no upcast in any call, and the weights take
-        the memory and the traffic of float32 ones."""
+        At batch 1 the 64-step denoiser loop streams its weights every
+        Euler step; bfloat16 storage halves that traffic and the memory.
+        The activations stay float32: at the ``"default"`` matmul precision
+        (``precision.py``) a matmul on the card takes the weight as a
+        bfloat16 operand as stored, and everywhere else (the CPU,
+        ``"highest"``, the norms and the depthwise conv) the parameter is
+        widened to float32 where it is used, as the JAX package promotes a
+        bfloat16 parameter against a float32 input."""
         for module in (self.prior, self.prob):
             for p in module.parameters():
-                p.data = p.data.to(dtype).to(p.dtype)
+                if p.is_floating_point():
+                    p.data = p.data.to(dtype)
 
     @classmethod
     def from_pretrained(cls, cfg: Dict, ckpt_path: str, weights_only: bool = True,

@@ -14,6 +14,7 @@ from typing import Dict, Tuple
 import torch
 from torch import Tensor, nn
 
+from flamed_tts_tpu_torch import precision
 from flamed_tts_tpu_torch.models.prior.pva import ProbabilisticModule
 from flamed_tts_tpu_torch.ops.embeddings import sinusoid_position_table
 from flamed_tts_tpu_torch.ops.fft_block import FFTBlock
@@ -51,7 +52,7 @@ class PriorGenerator(nn.Module):
         self.enc_max_len = tcfg["encoder_max_seq_len"]
         self.dec_max_len = tcfg["decoder_max_seq_len"]
 
-        self.src_word_emb = nn.Embedding(N_SYMBOLS + 1, self.enc_hidden)
+        self.src_word_emb = precision.Embedding(N_SYMBOLS + 1, self.enc_hidden)
         self.encoder = FFTStack(tcfg["encoder_layer"], self.enc_hidden, tcfg["encoder_head"],
                                 tcfg["encoder_conv_filter_size"], tcfg["encoder_conv_kernel_size"],
                                 tcfg["encoder_dropout"])
@@ -60,9 +61,9 @@ class PriorGenerator(nn.Module):
             self.add_module(name, ProbabilisticModule(g["input_size"], g["filter_size"],
                                                       g["kernel_size"], g["time_scale"],
                                                       g["drop_out"]))
-        self.bridge = nn.Linear(self.enc_hidden, self.dec_hidden)
+        self.bridge = precision.Linear(self.enc_hidden, self.dec_hidden)
         # the last id is padding (zero row in converted checkpoints)
-        self.code_embedding = nn.Embedding(self.vocab_size + 1, self.dec_hidden)
+        self.code_embedding = precision.Embedding(self.vocab_size + 1, self.dec_hidden)
 
         def decoder(n_layers):
             return FFTStack(n_layers, self.dec_hidden, tcfg["decoder_head"],
@@ -75,8 +76,8 @@ class PriorGenerator(nn.Module):
             self.add_module(f"prior_decoder_{i}", decoder(n))
         self.prompt_seg_emb = nn.Parameter(torch.zeros(1, 1, self.dec_hidden))
         self.target_seg_emb = nn.Parameter(torch.zeros(1, 1, self.dec_hidden))
-        self.quantizer_emb = nn.Embedding(self.n_quantizers, self.dec_hidden)
-        self.head = nn.Linear(self.dec_hidden, self.vocab_size + 1)
+        self.quantizer_emb = precision.Embedding(self.n_quantizers, self.dec_hidden)
+        self.head = precision.Linear(self.dec_hidden, self.vocab_size + 1)
 
     def encode(self, phonemes: Tensor, src_mask: Tensor) -> Tensor:
         l = phonemes.shape[1]

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from flamed_tts_tpu_torch import precision
 from flamed_tts_tpu_torch.ops.dropout import Dropout
 from flamed_tts_tpu_torch.ops.embeddings import flow_time_embedding
 
@@ -24,8 +25,8 @@ class FlowTimeEmbedding(nn.Module):
     def __init__(self, hidden_dim: int, time_scale: int):
         super().__init__()
         self.hidden_dim = hidden_dim
-        self.mlp_1 = nn.Linear(hidden_dim, hidden_dim * time_scale)
-        self.mlp_3 = nn.Linear(hidden_dim * time_scale, hidden_dim)
+        self.mlp_1 = precision.Linear(hidden_dim, hidden_dim * time_scale)
+        self.mlp_3 = precision.Linear(hidden_dim * time_scale, hidden_dim)
 
     def forward(self, t: Tensor) -> Tensor:
         return self.mlp_3(F.silu(self.mlp_1(flow_time_embedding(t, self.hidden_dim))))
@@ -38,14 +39,14 @@ class ProbabilisticModule(nn.Module):
                  dropout: float = 0.0):
         super().__init__()
         k = kernel_size
-        self.proj = nn.Linear(input_size + 1, input_size)
+        self.proj = precision.Linear(input_size + 1, input_size)
         self.time_emb = FlowTimeEmbedding(input_size, time_scale)
-        self.conv1d_1 = nn.Conv1d(input_size, filter_size, k, padding=(k - 1) // 2)
-        self.layer_norm_1 = nn.LayerNorm(filter_size, eps=1e-5)
-        self.conv1d_2 = nn.Conv1d(filter_size, filter_size, k, padding=1)
-        self.layer_norm_2 = nn.LayerNorm(filter_size, eps=1e-5)
+        self.conv1d_1 = precision.Conv1d(input_size, filter_size, k, padding=(k - 1) // 2)
+        self.layer_norm_1 = precision.LayerNorm(filter_size, eps=1e-5)
+        self.conv1d_2 = precision.Conv1d(filter_size, filter_size, k, padding=1)
+        self.layer_norm_2 = precision.LayerNorm(filter_size, eps=1e-5)
         self.dropout = Dropout(dropout)
-        self.linear_layer = nn.Linear(filter_size, 1)
+        self.linear_layer = precision.Linear(filter_size, 1)
 
     def forward(self, xt: Tensor, enc_out: Tensor, t: Tensor, pad_mask: Optional[Tensor]) -> Tensor:
         """xt (B, L), enc_out (B, L, H), t scalar or (B,) -> (B, L)."""

@@ -27,6 +27,15 @@ def pva_sample(prior, enc_out: Tensor, src_mask: Tensor, dur_noise: Tensor,
                sil_noise: Tensor, nfe: int, temperature: float) -> Tuple[Tensor, Tensor]:
     """Euler-integrate the duration / silence flows from
     ``noise * temperature``; returns (phone_dur, sil_dur), each (B, L)."""
+    dur, sil = pva_flow(prior, enc_out, src_mask, dur_noise, sil_noise, nfe, temperature)
+    return durations_from_flow(dur), durations_from_flow(sil)
+
+
+@torch.no_grad()
+def pva_flow(prior, enc_out: Tensor, src_mask: Tensor, dur_noise: Tensor,
+             sil_noise: Tensor, nfe: int, temperature: float) -> Tuple[Tensor, Tensor]:
+    """``pva_sample``'s flow states after the last Euler step, before the
+    rounding to frames: log(duration + 1), each (B, L)."""
     dur = dur_noise.float() * temperature
     sil = sil_noise.float() * temperature
     ts = torch.linspace(0.0, 1.0, nfe + 1, dtype=torch.float32, device=enc_out.device)[:-1]
@@ -35,7 +44,7 @@ def pva_sample(prior, enc_out: Tensor, src_mask: Tensor, dur_noise: Tensor,
         v_dur, v_sil = prior.pva_fields(dur, sil, enc_out, ts[i], src_mask)
         dur = dur + delta_t * v_dur
         sil = sil + delta_t * v_sil
-    return durations_from_flow(dur), durations_from_flow(sil)
+    return dur, sil
 
 
 def pva_loss(prior, enc_out: Tensor, src_mask: Tensor, phone_dur: Tensor, sil_dur: Tensor,

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from flamed_tts_tpu_torch import precision
 from flamed_tts_tpu_torch.ops.convnext import AdaLNResBlock, FinalLayer, TimestepEmbedder
 from flamed_tts_tpu_torch.ops.dropout import BatchRows, denominator, draw
 from flamed_tts_tpu_torch.ops.norms import MaskedGroupNorm
@@ -30,7 +31,7 @@ class ResnetBlock1D(nn.Module):
 
     def __init__(self, dim: int, groups: int = 8):
         super().__init__()
-        self.conv = nn.Linear(dim, dim)
+        self.conv = precision.Linear(dim, dim)
         self.norm = MaskedGroupNorm(groups, dim)
 
     def forward(self, x: Tensor, pad_mask: Optional[Tensor]) -> Tensor:
@@ -48,10 +49,10 @@ class ConditionDownSampler(nn.Module):
         c = in_channel
         for i in range(n_stages):
             self.add_module(f"resblock_{i}", ResnetBlock1D(c))
-            self.add_module(f"down_conv_{i}", nn.Linear(c, c // 2))
+            self.add_module(f"down_conv_{i}", precision.Linear(c, c // 2))
             self.add_module(f"down_norm_{i}", MaskedGroupNorm(n_groups, c // 2))
             c //= 2
-        self.proj_out = nn.Linear(c, out_channel)
+        self.proj_out = precision.Linear(c, out_channel)
 
     def forward(self, x: Tensor, pad_mask: Optional[Tensor]) -> Tensor:
         for i in range(self.n_stages):
@@ -68,8 +69,8 @@ class SimpleMLPAdaLN(nn.Module):
         super().__init__()
         self.num_res_blocks = num_res_blocks
         self.time_embed = TimestepEmbedder(model_channels)
-        self.cond_embed = nn.Linear(spk_dim, model_channels)
-        self.proj_in = nn.Linear(in_channels, model_channels)
+        self.cond_embed = precision.Linear(spk_dim, model_channels)
+        self.proj_in = precision.Linear(in_channels, model_channels)
         for i in range(num_res_blocks):
             self.add_module(f"res_block_{i}",
                             AdaLNResBlock(model_channels, kernel, padding, expand, groups))
@@ -125,7 +126,7 @@ class ProbGenerator(nn.Module):
         self.n_quantizers = config["n_quantizers"]
         self.cond_dim = config["cond_dim"]
         self.target_dim = config["target_dim"]
-        self.quantizer_emb = nn.Embedding(self.n_quantizers, self.cond_dim)
+        self.quantizer_emb = precision.Embedding(self.n_quantizers, self.cond_dim)
         self.cond_downsampling = ConditionDownSampler(
             self.n_quantizers * self.cond_dim, self.target_dim, config["downsampling_stages"])
         cx = config["convnext"]

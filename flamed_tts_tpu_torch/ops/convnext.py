@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from flamed_tts_tpu_torch import precision
 from flamed_tts_tpu_torch.ops.embeddings import dit_timestep_embedding
 from flamed_tts_tpu_torch.ops.norms import MaskedGroupNorm, layer_norm_noaffine
 
@@ -34,15 +35,19 @@ class DepthwiseConv1D(nn.Conv1d):
         super().__init__(channels, channels, kernel, padding=padding, groups=channels)
 
     def forward(self, x: Tensor) -> Tensor:
-        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        # float32 under either precision: the JAX package's depthwise conv is
+        # a sum of shifted products, not a dot
+        return F.conv1d(x.transpose(1, 2), precision.widen(self.weight, x),
+                        precision.widen(self.bias, x), padding=self.padding,
+                        groups=self.groups).transpose(1, 2)
 
 
 class TimestepEmbedder(nn.Module):
     def __init__(self, hidden_size: int, frequency_embedding_size: int = 256):
         super().__init__()
         self.freq = frequency_embedding_size
-        self.mlp_0 = nn.Linear(frequency_embedding_size, hidden_size)
-        self.mlp_2 = nn.Linear(hidden_size, hidden_size)
+        self.mlp_0 = precision.Linear(frequency_embedding_size, hidden_size)
+        self.mlp_2 = precision.Linear(hidden_size, hidden_size)
 
     def forward(self, t: Tensor) -> Tensor:
         return self.mlp_2(F.silu(self.mlp_0(dit_timestep_embedding(t, self.freq))))
@@ -56,8 +61,8 @@ class ConvNeXtBlock(nn.Module):
             raise ValueError("only depthwise ConvNeXt convs (groups=None) are supported")
         self.conv_1 = DepthwiseConv1D(channels, kernel, padding)
         self.ln_1 = MaskedGroupNorm(channels, channels)
-        self.conv_2 = nn.Linear(channels, channels * expand)
-        self.conv_3 = nn.Linear(channels * expand, channels)
+        self.conv_2 = precision.Linear(channels, channels * expand)
+        self.conv_3 = precision.Linear(channels * expand, channels)
 
     def forward(self, x: Tensor, pad_mask: Optional[Tensor] = None) -> Tensor:
         h = x if pad_mask is None else x.masked_fill(pad_mask[:, :, None], 0.0)
@@ -69,12 +74,12 @@ class AdaLNResBlock(nn.Module):
     def __init__(self, channels: int, kernel: int = 31, padding: int = 15,
                  expand: int = 1, groups: Optional[int] = None):
         super().__init__()
-        self.adaLN_modulation = nn.Linear(channels, 6 * channels)
-        self.ln_conv = nn.LayerNorm(channels, eps=1e-6)
+        self.adaLN_modulation = precision.Linear(channels, 6 * channels)
+        self.ln_conv = precision.LayerNorm(channels, eps=1e-6)
         self.conv_in = ConvNeXtBlock(channels, kernel, padding, expand, groups)
-        self.ln_mlp = nn.LayerNorm(channels, eps=1e-6)
-        self.mlp_0 = nn.Linear(channels, channels)
-        self.mlp_2 = nn.Linear(channels, channels)
+        self.ln_mlp = precision.LayerNorm(channels, eps=1e-6)
+        self.mlp_0 = precision.Linear(channels, channels)
+        self.mlp_2 = precision.Linear(channels, channels)
 
     def mods(self, y: Tensor) -> Tensor:
         return self.adaLN_modulation(F.silu(y))
@@ -90,9 +95,9 @@ class FinalLayer(nn.Module):
     def __init__(self, model_channels: int, out_channels: int, kernel: int = 31,
                  padding: int = 15, expand: int = 1, groups: Optional[int] = None):
         super().__init__()
-        self.adaLN_modulation = nn.Linear(model_channels, 5 * model_channels)
+        self.adaLN_modulation = precision.Linear(model_channels, 5 * model_channels)
         self.conv_in = ConvNeXtBlock(model_channels, kernel, padding, expand, groups)
-        self.conv_out = nn.Conv1d(model_channels, out_channels, 3, padding=1)
+        self.conv_out = precision.Conv1d(model_channels, out_channels, 3, padding=1)
 
     def mods(self, c: Tensor) -> Tensor:
         return self.adaLN_modulation(F.silu(c))

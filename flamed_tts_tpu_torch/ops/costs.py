@@ -86,6 +86,21 @@ def bound_ms(flops: float, nbytes: float, dtype: torch.dtype, peaks: Peaks) -> T
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
+def _addmm_flop(self_shape, a_shape, b_shape, *rest, out_shape=None, **kwargs) -> int:
+    return 2 * a_shape[0] * a_shape[1] * b_shape[1]
+
+
+def _bmm_flop(a_shape, b_shape, *rest, out_shape=None, **kwargs) -> int:
+    return 2 * a_shape[0] * a_shape[1] * a_shape[2] * b_shape[2]
+
+
+# FlopCounterMode's formulas for addmm and bmm take a fourth positional
+# argument as the output's shape; the overloads with a result type
+# (``out_dtype``, the bfloat16-operand products of ``precision.py``) pass the
+# type there.  These count every overload.
+FLOP_FORMULAS = {torch.ops.aten.addmm: _addmm_flop, torch.ops.aten.bmm: _bmm_flop}
+
+
 class _ByteMode(TorchDispatchMode):
     """Sums the bytes of every tensor input and output of each aten op that
     is not a view (a view moves nothing)."""
@@ -115,7 +130,7 @@ class CostCounter:
         self.kernel_flops = 0
         self.kernel_bytes = 0
         self.kernels: Dict[str, int] = {}
-        self._flop_mode = FlopCounterMode(display=False)
+        self._flop_mode = FlopCounterMode(display=False, custom_mapping=FLOP_FORMULAS)
         self._byte_mode = _ByteMode()
 
     def __enter__(self) -> "CostCounter":

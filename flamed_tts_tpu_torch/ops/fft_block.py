@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from flamed_tts_tpu_torch import precision
 from flamed_tts_tpu_torch.ops.dropout import Dropout
 from flamed_tts_tpu_torch.ops.masking import apply_mask
 
@@ -26,24 +27,26 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, n_head: int, d_model: int, d_k: int, d_v: int, dropout: float = 0.0):
         super().__init__()
         self.n_head, self.d_k, self.d_v = n_head, d_k, d_v
-        self.w_qs = nn.Linear(d_model, n_head * d_k)
-        self.w_ks = nn.Linear(d_model, n_head * d_k)
-        self.w_vs = nn.Linear(d_model, n_head * d_v)
-        self.fc = nn.Linear(n_head * d_v, d_model)
+        self.w_qs = precision.Linear(d_model, n_head * d_k)
+        self.w_ks = precision.Linear(d_model, n_head * d_k)
+        self.w_vs = precision.Linear(d_model, n_head * d_v)
+        self.fc = precision.Linear(n_head * d_v, d_model)
         self.dropout = Dropout(dropout)
-        self.layer_norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.layer_norm = precision.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, x: Tensor, attn_mask: Optional[Tensor]) -> Tensor:
         """attn_mask: (B, Lk) or (B, Lq, Lk), True = disallowed key."""
         b, l, _ = x.shape
-        q = self.w_qs(x).view(b, l, self.n_head, self.d_k).transpose(1, 2)
-        k = self.w_ks(x).view(b, l, self.n_head, self.d_k).transpose(1, 2)
-        v = self.w_vs(x).view(b, l, self.n_head, self.d_v).transpose(1, 2)
-        scores = q @ k.transpose(-1, -2) / np.sqrt(self.d_k)
+        xo = precision.operand(x)  # cast once for the three projections
+        q = self.w_qs(xo).view(b, l, self.n_head, self.d_k).transpose(1, 2)
+        k = self.w_ks(xo).view(b, l, self.n_head, self.d_k).transpose(1, 2)
+        v = self.w_vs(xo).view(b, l, self.n_head, self.d_v).transpose(1, 2)
+        scores = precision.matmul(q, k.transpose(-1, -2)) / np.sqrt(self.d_k)
         if attn_mask is not None:
             m = attn_mask[:, None, None, :] if attn_mask.dim() == 2 else attn_mask[:, None]
             scores = scores.masked_fill(m, _NEG_INF)
-        out = (torch.softmax(scores, dim=-1) @ v).transpose(1, 2).reshape(b, l, self.n_head * self.d_v)
+        out = precision.matmul(torch.softmax(scores, dim=-1), v)
+        out = out.transpose(1, 2).reshape(b, l, self.n_head * self.d_v)
         return self.layer_norm(self.dropout(self.fc(out)) + x)
 
 
@@ -51,10 +54,10 @@ class ConvFeedForward(nn.Module):
     def __init__(self, d_in: int, d_hid: int, kernel_sizes: Sequence[int], dropout: float = 0.0):
         super().__init__()
         k0, k1 = kernel_sizes
-        self.w_1 = nn.Conv1d(d_in, d_hid, k0, padding=(k0 - 1) // 2)
-        self.w_2 = nn.Conv1d(d_hid, d_in, k1, padding=(k1 - 1) // 2)
+        self.w_1 = precision.Conv1d(d_in, d_hid, k0, padding=(k0 - 1) // 2)
+        self.w_2 = precision.Conv1d(d_hid, d_in, k1, padding=(k1 - 1) // 2)
         self.dropout = Dropout(dropout)
-        self.layer_norm = nn.LayerNorm(d_in, eps=1e-5)
+        self.layer_norm = precision.LayerNorm(d_in, eps=1e-5)
 
     def forward(self, x: Tensor) -> Tensor:
         out = self.w_2(F.relu(self.w_1(x.transpose(1, 2)))).transpose(1, 2)

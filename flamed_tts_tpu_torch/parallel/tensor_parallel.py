@@ -37,6 +37,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import Tensor
 
+from flamed_tts_tpu_torch import precision
 from flamed_tts_tpu_torch.ops.convnext import modulate
 from flamed_tts_tpu_torch.ops.embeddings import dit_timestep_embedding
 from flamed_tts_tpu_torch.ops.norms import masked_group_norm
@@ -103,36 +104,36 @@ def layer_norm(x: Tensor, tp, channels: int, weight: Optional[Tensor] = None,
 def _linear_row(x: Tensor, layer, tp) -> Tensor:
     """A row-parallel Linear: this rank's input channels times its columns
     of the weight, summed over the group, then the (replicated) bias."""
-    return all_reduce(F.linear(x, layer.weight), tp) + layer.bias
+    return all_reduce(precision.linear(x, layer.weight), tp) + layer.bias
 
 
 def _convnext(cb, x: Tensor, pad_mask: Optional[Tensor], tp) -> Tensor:
     h = x if pad_mask is None else x.masked_fill(pad_mask[:, :, None], 0.0)
     conv = cb.conv_1
-    h = F.conv1d(h.transpose(1, 2), conv.weight, conv.bias, padding=conv.padding,
-                 groups=conv.weight.shape[0]).transpose(1, 2)
+    h = F.conv1d(h.transpose(1, 2), precision.widen(conv.weight, h), precision.widen(conv.bias, h),
+                 padding=conv.padding, groups=conv.weight.shape[0]).transpose(1, 2)
     h = masked_group_norm(h, h.shape[-1], cb.ln_1.weight, cb.ln_1.bias, pad_mask, cb.ln_1.eps)
     h = F.gelu(_linear_row(h, cb.conv_2, tp))
-    return x + F.linear(h, cb.conv_3.weight, own_channels(cb.conv_3.bias, tp))
+    return x + precision.linear(h, cb.conv_3.weight, own_channels(cb.conv_3.bias, tp))
 
 
 def time_embed(den, t: Tensor) -> Tensor:
     """This rank's channels of ``den.time_embed(t)``."""
     te = den.time_embed
-    h = F.silu(F.linear(dit_timestep_embedding(t, te.freq), te.mlp_0.weight, te.mlp_0.bias))
-    return F.linear(all_gather(h, den.tp), te.mlp_2.weight, te.mlp_2.bias)
+    h = F.silu(precision.linear(dit_timestep_embedding(t, te.freq), te.mlp_0.weight, te.mlp_0.bias))
+    return precision.linear(all_gather(h, den.tp), te.mlp_2.weight, te.mlp_2.bias)
 
 
 def cond_embed(den, spk: Tensor) -> Tensor:
     """This rank's channels of ``den.cond_embed(spk)``."""
-    return F.linear(spk, den.cond_embed.weight, den.cond_embed.bias)
+    return precision.linear(spk, den.cond_embed.weight, den.cond_embed.bias)
 
 
 def mods(den, y: Tensor) -> List[Tensor]:
     """The adaLN modulations of every block and of the final layer from
     this rank's channels of ``y``: this rank's channels of each of them."""
     y_all = all_gather(F.silu(y), den.tp)
-    return [F.linear(y_all, m.adaLN_modulation.weight, m.adaLN_modulation.bias)
+    return [precision.linear(y_all, m.adaLN_modulation.weight, m.adaLN_modulation.bias)
             for m in [*den.blocks(), den.final_layer]]
 
 
@@ -141,14 +142,14 @@ def forward(den, x: Tensor, mods_: List[Tensor], pad_mask: Optional[Tensor] = No
     result (the velocity, whole on every rank)."""
     tp = den.tp
     c = den.proj_in.weight.shape[0] * tp.size  # the hidden width
-    x = F.linear(x, den.proj_in.weight, den.proj_in.bias)
+    x = precision.linear(x, den.proj_in.weight, den.proj_in.bias)
     for blk, m in zip(den.blocks(), mods_):
         shift_c, scale_c, gate_c, shift_m, scale_m, gate_m = m.chunk(6, dim=-1)
         h = layer_norm(x, tp, c, blk.ln_conv.weight, blk.ln_conv.bias, blk.ln_conv.eps)
         x = x + gate_c * _convnext(blk.conv_in, modulate(h, shift_c, scale_c), pad_mask, tp)
         h = modulate(layer_norm(x, tp, c, blk.ln_mlp.weight, blk.ln_mlp.bias, blk.ln_mlp.eps),
                      shift_m, scale_m)
-        h = F.silu(F.linear(all_gather(h, tp), blk.mlp_0.weight, blk.mlp_0.bias))
+        h = F.silu(precision.linear(all_gather(h, tp), blk.mlp_0.weight, blk.mlp_0.bias))
         x = x + gate_m * own_channels(_linear_row(h, blk.mlp_2, tp), tp)
     fl = den.final_layer
     shift_c, scale_c, gate_c, shift_m, scale_m = mods_[-1].chunk(5, dim=-1)

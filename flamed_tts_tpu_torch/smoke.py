@@ -7,7 +7,9 @@ from ``configs/`` (``--small`` cuts the layer counts, not the widths),
 makes a deterministic batch in the training batch contract (the nine
 tensors, phoneme and silence durations summing to each target length),
 prints the parameter count, the losses in eval mode and the shapes that
-sampling gives, and fails on a non-finite value.
+sampling gives, and fails on a non-finite value.  It runs at the
+``"highest"`` matmul precision (float32 on every device), as ``test.py``
+sets it.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from flamed_tts_tpu_torch.config import load_default_config
 from flamed_tts_tpu_torch.models.flamed import Flamed
+from flamed_tts_tpu_torch.precision import set_matmul_precision
 from flamed_tts_tpu_torch.train.losses import compute_losses
 from flamed_tts_tpu_torch.train.step import batch_to_device
 
@@ -72,6 +75,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     parser.add_argument("--small", action="store_true",
                         help="Cut the layer counts for a fast smoke run.")
     args = parser.parse_args(argv)
+    set_matmul_precision("highest")
 
     cfg = build_cfg(args.small)
     t0 = time.time()

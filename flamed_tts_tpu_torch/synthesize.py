@@ -16,8 +16,10 @@ the same output names (``{prompt}-{nd}-{nn}-{td}-{tn}.wav``, and a
 ``nfe{n}-temp{t}/`` sub-directory in metadata mode) and the same Avg-RTF
 printout.  ``--ckpt-path`` takes a converted ``.npz`` or the reference's
 PyTorch checkpoint (read with ``torch.load(weights_only=--weights-only)``).
-``--device`` is ``cuda`` (the default) or ``cpu``; ``--precision bf16``
-rounds the model's and the codec's parameters to bfloat16; ``--profile-dir``
+``--device`` is ``cuda`` (the default) or ``cpu``; ``--precision fp32`` (the
+default) runs at the ``"highest"`` matmul precision (``precision.py``), as the
+root script sets it, and ``bf16`` at ``"default"`` with the model's and the
+codec's parameters stored in bfloat16; ``--profile-dir``
 writes a ``torch.profiler`` Chrome trace of the synthesis there.
 """
 
@@ -35,6 +37,7 @@ import torch
 from flamed_tts_tpu_torch.config import load_default_config, load_yaml
 from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
 from flamed_tts_tpu_torch.models.flamed import Flamed
+from flamed_tts_tpu_torch.precision import set_matmul_precision
 from flamed_tts_tpu_torch.utils.audio import load_wav, save_wav, synth_filename
 from flamed_tts_tpu_torch.utils.profiling import trace
 
@@ -81,8 +84,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--codec-dir", type=str, default=None,
                         help="Directory with converted codec .npz checkpoints ('random' for random init).")
     parser.add_argument("--precision", type=str, default="fp32", choices=["fp32", "bf16"],
-                        help="fp32, or bf16: the model's and the codec's parameters rounded to "
-                             "bfloat16 (the codec then computes in bfloat16).")
+                        help="fp32 (float32 matmuls, TF32 off), or bf16: the model's and the codec's "
+                             "parameters stored in bfloat16, bfloat16 matmuls on the card.")
     parser.add_argument("--seed", type=int, default=None, help="Sampling seed.")
     parser.add_argument("--lexicon-path", type=str, default=None)
     parser.add_argument("--profile-dir", type=str, default=None,
@@ -239,6 +242,8 @@ def main(args: Optional[argparse.Namespace] = None) -> Optional[float]:
             parser.error(str(exc))
         raise
 
+    if args.precision == "fp32":
+        set_matmul_precision("highest")
     cfg = load_config(args.cfg_path)
     codec = get_codec(cfg, args.codec_dir, args.device)
     model = prepare_model(cfg, args.ckpt_path, args.device, args.weights_only)

@@ -33,8 +33,13 @@ Validation keeps a last partial batch (the JAX trainer drops it to save a
 compile; eager PyTorch has none to save).  ``--resume-full`` restores the
 parameters, the optimizer, the schedule, the step and the random states,
 and starts the data order again from the first epoch, as the JAX trainer
-does.  The trainer leaves PyTorch's TF32 switches as the caller set them
-(PyTorch's defaults: cuDNN convolutions in TF32, matmuls in fp32).
+does.  The trainer sets no matmul precision, as the root ``train.py`` sets
+none: it runs the process's (``precision.py``; ``"default"`` unless the
+caller set another), with float32 master weights and AdamW state.  On the
+card that gives the prior's and the denoiser's matmuls and convs, forward
+and backward, bfloat16 operands with float32 accumulation; on the CPU they
+are float32.  The codec's float32 convolutions in the validation audio run
+under PyTorch's own TF32 switches as the caller left them.
 """
 
 from __future__ import annotations

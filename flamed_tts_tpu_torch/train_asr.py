@@ -16,8 +16,8 @@ As the JAX package's ``tools/train_asr.py``: the loss (label smoothing
 speaker head's cross-entropy on 8 x embedding @ spk_cls where the corpus
 has speakers), optax's ``chain(clip_by_global_norm(1.0),
 adamw(warmup_cosine_decay_schedule(0, lr, min(200, total // 10), total),
-weight_decay=1e-4))`` (``train_codec.FiniteAdam``, which also skips a
-non-finite update), the batch order from ``RandomState(seed + 1)``, the
+weight_decay=1e-4))`` (``train_codec.FiniteAdam`` with ``if_finite=False``:
+a non-finite gradient is applied, as the chain applies it), the batch order from ``RandomState(seed + 1)``, the
 validation frame accuracy, the speaker accuracy and the closing
 free-decoding WER on the validation utterances.  ``--out`` has no default:
 the trainer writes no weights into either package.
@@ -139,7 +139,7 @@ def loss_fn(p: Dict, mel: torch.Tensor, lab: torch.Tensor, spk: torch.Tensor) ->
 def make_optimizer(p: Dict, lr: float, total: int) -> FiniteAdam:
     """The JAX tool's chain over ``p``'s tensors (``leaves`` order)."""
     return FiniteAdam(leaves(p), cosine_schedule(lr, min(200, total // 10), total),
-                      weight_decay=1e-4)
+                      weight_decay=1e-4, if_finite=False)
 
 
 def train_step(p: Dict, opt: FiniteAdam, mel: torch.Tensor, lab: torch.Tensor,

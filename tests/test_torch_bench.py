@@ -221,3 +221,29 @@ def test_throughput_batch_assembly(pinned):
         np.testing.assert_array_equal(timbres[i], timbre)
     assert (prompts[0, :, 40:] == model.vocab_size).all()
     assert bench_throughput.audio_seconds(np.array([400, 80])) == 6.0
+
+
+def test_bench_ab_alternates_the_checkouts(monkeypatch, tmp_path, capsys):
+    """bench_ab runs the two checkouts' benches in the order other, this,
+    this, other, ... in their own directories, then one profile and one
+    component run each, and prints the report as its last line."""
+    from flamed_tts_tpu_torch import bench_ab
+
+    calls = []
+
+    def fake(root, argv):
+        calls.append((root, argv[-1] if argv[0] == "-m" else argv[:2]))
+        if argv[:2] == ["-m", "flamed_tts_tpu_torch.bench_components"]:
+            return {"rows": [{"name": "denoiser", "ms": 1.0}],
+                    "total": {"rtf_compute_floor": 0.01, "compute_ms": 1.0, "mfu_whole_call": 1.0}}
+        return {"value": 0.1 if root == bench_ab.HERE else 0.2, "device_kernels": 1}
+
+    monkeypatch.setattr(bench_ab, "_last_json", fake)
+    monkeypatch.setattr(bench_ab, "nvidia_smi_line", lambda: "card")
+    report = bench_ab.main(["--other", str(tmp_path)])
+    assert report["order"] == ["other", "this", "this", "other", "other", "this"]
+    assert report["rtf"] == {"other": [0.2] * 3, "this": [0.1] * 3}
+    assert [c[0] for c in calls[:6]] == [str(tmp_path), bench_ab.HERE, bench_ab.HERE, str(tmp_path),
+                                         str(tmp_path), bench_ab.HERE]
+    assert report["components"]["this"]["rows_ms"] == {"denoiser": 1.0}
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == report

@@ -351,6 +351,7 @@ def test_cli_on_the_cpu(small_tool, capsys, section):
     lines = capsys.readouterr().out.strip().splitlines()
     report = json.loads(lines[-1])
     assert report == json.loads(json.dumps(out["report"]))
+    assert report["precision"] == "highest"  # fp32 rows at the fp32 serving precision
     rows = report["rows"]
     assert [r["name"] for r in rows] == _expected_names(section, out["codec"])
     assert {r["section"] for r in rows} == {section}
@@ -366,3 +367,20 @@ def test_cli_on_the_cpu(small_tool, capsys, section):
         assert all(r["max_abs_err"] < 1e-4 for r in rows)
     with pytest.raises(SystemExit):
         bc.main(["--which", "mfu,nope", "--device", "cpu"])
+
+
+def test_bf16_operand_products_are_counted():
+    """The products with a float32 result from bfloat16 operands
+    (``precision.py`` on the card: addmm / mm / bmm with ``out_dtype``) count
+    2 m k n FLOPs, as the float32 ones do; meta tensors stand in for the
+    card's."""
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.empty(*shape, device="meta", dtype=dtype)
+
+    with costs.CostCounter() as cc:
+        torch.addmm(t(5), t(3, 4), t(4, 5), out_dtype=torch.float32)
+        torch.mm(t(3, 4), t(4, 5), out_dtype=torch.float32)
+        torch.bmm(t(2, 3, 4), t(2, 4, 5), out_dtype=torch.float32)
+        torch.addmm(t(5, dtype=torch.float32), t(3, 4, dtype=torch.float32), t(4, 5, dtype=torch.float32))
+        torch.bmm(t(2, 3, 4, dtype=torch.float32), t(2, 4, 5, dtype=torch.float32))
+    assert cc.flops == 2 * 3 * 4 * 5 * (1 + 1 + 2 + 1 + 2)

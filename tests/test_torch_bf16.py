@@ -235,8 +235,8 @@ def test_flamed_cast_matches_the_jax_cast():
     host = jax.device_get(jmodel.params)
     carried = params_from_jax(host["prior"])
     for name, p in model.prior.state_dict().items():
-        assert carried[name].dtype == torch.bfloat16
-        assert torch.equal(p, carried[name].float()), name
+        assert carried[name].dtype == torch.bfloat16 and p.dtype == torch.bfloat16, name
+        assert torch.equal(p, carried[name]), name
 
     rng = np.random.RandomState(3)
     phonemes = rng.randint(1, 300, (1, 12))

@@ -120,6 +120,53 @@ def test_three_steps_match_jax():
     assert moved > 5e-3
 
 
+def test_non_finite_gradient_is_applied_as_optax_applies_it():
+    """One finite step, then a gradient holding a NaN: the JAX tool's chain
+    (no apply_if_finite) clips by a NaN norm and writes NaNs into the
+    moments and the parameters, and counts the step; the port's optimizer
+    does the same (parameters, moments and count, NaN where optax has NaN)."""
+    lr, total = 2e-2, 30
+    params = asr.init_params(np.random.RandomState(3), n_speakers=3, d_model=32, n_layers=3)
+    rng = np.random.RandomState(5)
+    mel = rng.randn(4, 64, 80).astype(np.float32)
+    lab = rng.randint(0, asr.N_CLASSES, (4, 64)).astype(np.int32)
+    spk = np.array([0, 2, -1, 1], np.int32)
+    tx, jstep = _jax_step(lr, total)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    state = tx.init(jp)
+    jp, state, _ = jstep(jp, state, jnp.asarray(mel), jnp.asarray(lab), jnp.asarray(spk))
+    p = tree_map(lambda t: t.requires_grad_(), asr.to_tensors(params))
+    opt = train_asr.make_optimizer(p, lr, total)
+    train_asr.train_step(p, opt, torch.from_numpy(mel), torch.from_numpy(lab), torch.from_numpy(spk))
+
+    grads = tree_map(lambda t: torch.from_numpy(rng.randn(*t.shape).astype(np.float32)),
+                     asr.to_tensors(params))
+    leaves(grads)[0].view(-1)[0] = float("nan")
+    updates, state = tx.update(jax.tree_util.tree_map(jnp.asarray, asr.to_numpy(grads)), state, jp)
+    jp = optax.apply_updates(jp, updates)
+    opt.step(leaves(grads))
+
+    adam = state[1][0]
+    assert int(adam.count) == opt.count == 2
+
+    def port_order(tree, like=params):
+        """The JAX tree's arrays in the port's leaf order (``like``'s keys)."""
+        if isinstance(like, dict):
+            return [a for k in like for a in port_order(tree[k], like[k])]
+        if isinstance(like, list):
+            return [a for t, l in zip(tree, like) for a in port_order(t, l)]
+        return [np.asarray(tree)]
+
+    for ours, ref in (([t.detach().numpy() for t in leaves(p)], port_order(jax.device_get(jp))),
+                      ([t.numpy() for t in opt.mu], port_order(jax.device_get(adam.mu))),
+                      ([t.numpy() for t in opt.nu], port_order(jax.device_get(adam.nu)))):
+        assert len(ours) == len(ref)
+        for a, b in zip(ours, ref):
+            np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4, equal_nan=True)
+    assert all(np.isnan(t.detach().numpy()).any() for t in leaves(p))
+
+
 def test_cli_writes_weights_jax_reads(corpus, tmp_path):
     """Two epochs on the CPU at the default widths (256 x 8), on the clean
     and decoded audio: finite losses, a weights file that the JAX

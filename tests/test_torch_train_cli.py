@@ -170,3 +170,23 @@ def test_smoke_cli_on_cpu():
     losses = main(["--device", "cpu", "--small", "--nsteps", "2"])
     assert set(losses) == {"dur_loss", "sil_loss", "prior_loss", "fm_loss", "anchor_loss",
                            "total_loss"}
+
+
+def test_smoke_runs_at_highest(monkeypatch):
+    """smoke.main sets the "highest" matmul precision (TF32 off) before it
+    builds the model, as the root test.py sets jax_default_matmul_precision."""
+    from flamed_tts_tpu_torch import precision, smoke
+
+    seen = {}
+
+    def stop(small):
+        seen.update(precision=precision.get_matmul_precision(),
+                    tf32=(torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(smoke, "build_cfg", stop)
+    with precision.matmul_precision("default"):  # the precision and TF32 restored after
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        with pytest.raises(KeyboardInterrupt):
+            smoke.main(["--device", "cpu", "--small"])
+    assert seen == {"precision": "highest", "tf32": (False, False)}
