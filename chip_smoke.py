@@ -17,8 +17,12 @@ Phases (any failure exits non-zero before the last line):
      and bf16), with the same bits from another tile;
   3. drive the two main paths at full width (random prior/prob weights from
      seed 0, the trained codec in artifacts/codec_r5, a 3 s prompt, 64 + 64
-     Euler steps), each with every kernel's launch count set to 0 just
-     before and read just after, and time five warm calls of each:
+     Euler steps): each call eagerly (``graphs=False``) against the same
+     call captured as CUDA graphs, its first captured call and a replay,
+     every output bit for bit (latents, hiddens, logits, tgt_len, the mask,
+     the int16 PCM), with each signature's capture seconds and pool memory;
+     then a replayed call with every kernel's launch count set to 0 just
+     before and read just after, and five warm calls of each timed:
        A. phonemes -> staged path, fp32 at the "highest" matmul precision
           (flamed_tts_tpu_torch/precision.py), one K2 launch a residual unit;
        B. text -> frontend -> fused prompt path, bf16 parameters at
@@ -35,7 +39,9 @@ Phases (any failure exits non-zero before the last line):
      samples, a short utterance on the card against the same on the CPU
      (plain versions) for each path (A at "highest"; B at "default" against
      the CPU forced to the same arithmetic), with the count of the prompt's
-     RVQ codes that differ between the two, and one forced overflow retry on B;
+     RVQ codes that differ between the two, and one forced overflow retry on B
+     (the stage2 graph replayed at the larger bucket), eagerly against
+     captured bit for bit, its launches counted on a replay;
   5. at each main-path shape, hold the kernel against its plain version
      again and time both beside the kernel's bound: the kernel's device
      time from a CUDA graph replay, and per-call time from CUDA events
@@ -71,8 +77,12 @@ Phases (any failure exits non-zero before the last line):
      durations: its JSON line, each timed call's tgt_len, frame bucket and
      audio seconds, frames a phoneme held to bench.FRAMES_PER_PHONEME, the
      five times, the dispatch-floor probe and load1; the kernel launches of
-     one timed call, held to those of its shapes; a profiled call's device
-     kernels and its GEMM kernels off the tensor cores; the bench's utterance at
+     one timed (replayed) call, held to those of its shapes; the bench's call
+     eagerly against captured, bit for bit; a profiled call eagerly and
+     captured: its host launches and copies (fewer than 100 captured), device
+     kernels, busy and idle share, peak memory, and the captured call's GEMM
+     kernels off the tensor cores; the wall RTF eagerly and captured in turns,
+     five calls each; the bench's utterance at
      "default" against "highest", as path B's in phase 3), ``bench_throughput``
      (batch 4, nfe 128), ``profile_sample`` (its span line; the fused
      call's dispatch and host read must be most of the wall), ``synthesize
@@ -140,11 +150,12 @@ Phases (any failure exits non-zero before the last line):
      launches its wrappers made, and the codec rows' K1 / K2 launches equal
      to their shapes; the convforms pairs within CONVFORM_BF16_STEPS; the
      codec decode's and the prompt encode's FLOPs and bytes equal to the
-     same rows counted on the CPU; the compute-floor RTF at or under phase
-     7's wall RTF of the same shape.
-     Last: the kernels line (paths A, B, precompute, validation, bench,
-     codec_train, redecoder, eval and mesh), the card's name and power
-     limit, the device line.
+     same rows counted on the CPU; every mfu row timed by graph replay (no
+     stage reads the host); the compute-floor RTF at or under phase 7's wall
+     RTF of the same shape.
+     Last: the smoke's seconds in all, the kernels line (paths A, B,
+     precompute, validation, bench, codec_train, redecoder, eval and mesh),
+     the card's name and power limit, the device line.
 """
 
 from __future__ import annotations
@@ -263,6 +274,11 @@ LATENT_REL_TOL, MEL_L2_TOL = 0.05, 2.0
 # cuDNN's "implicit_convolve_sgemm" (of any type).  None may run in the prior
 # and denoiser stages at "default"
 CUDA_CORE_GEMM = re.compile(r"ffma|simt|sgemm|f32f32_f32f32", re.IGNORECASE)
+# a sampling call's outputs that the captured call must give bit for bit
+GRAPH_OUTPUTS = ("latents", "prior_embs", "prior_logits", "tgt_len", "tgt_mask", "wav")
+# the host's launches and copies among a profile's CPU events (the CUDA API
+# calls that enqueue work on the device: kernel and graph launches, copies, sets)
+HOST_LAUNCH = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|GraphLaunch|Memcpy|Memset)")
 # the trainer's step at "default" on the card (bf16 operands), checked two
 # ways.  Each matmul and conv of the prior and the prob, replayed on the
 # inputs and the incoming gradient it had in that step, against the CPU
@@ -855,23 +871,73 @@ def bench_phase(kernels, dev) -> dict:
             or not launches["residual_unit"]):
         raise AssertionError(f"bench: launches {launches}, expected {launch_counts(calls)}")
 
-    # where one warm bench call's time goes on the device
+    # the bench's call eagerly against captured, bit for bit
+    ids = model._get_frontend()(bench.TEXT)[0]
+    padded, n_frames = codec.pad_prompt_wav(bench.prompt_wav())
+    with tf32(*DEFAULT_TF32):
+        graph_check("bench", model.sampler, lambda: model.sample_batch(
+            ids, np.array([ids.shape[1]]), prompt_wav=padded[None], prompt_frames=np.array([n_frames]),
+            codec=codec, seed=1, temp_durgen=bench.TEMPERATURE, temp_denoiser=bench.TEMPERATURE), kernels)
+
+    # where one warm bench call's time goes, eagerly and captured: the host's
+    # launches and copies, the device's kernels and busy share, peak memory
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with tf32(*DEFAULT_TF32), torch.profiler.profile(activities=acts) as prof:
-        torch.cuda.synchronize()
-        w0 = time.perf_counter()
-        run(1)
-        wall = 1e3 * (time.perf_counter() - w0)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"[bench] profiled call {wall:.1f} ms: device busy {busy:.1f} ms ({100 * busy / wall:.1f} %), "
-        f"{sum(e.count for e in events)} device kernels/copies")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
-        log(f"[bench]   {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    profiled = {}
+    for graphs in (False, True):
+        model.sampler.graphs = graphs
+        with tf32(*DEFAULT_TF32):
+            run(1)  # warm
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with torch.profiler.profile(activities=acts) as prof:
+                torch.cuda.synchronize()
+                w0 = time.perf_counter()
+                run(1)
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - w0)
+        peak = torch.cuda.max_memory_allocated()
+        averages = prof.key_averages()
+        events = [e for e in averages
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        host = sum(e.count for e in averages if HOST_LAUNCH.match(e.key))
+        name = "captured" if graphs else "eager"
+        profiled[name] = {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall, "host_launches": host,
+                          "device_kernels": sum(e.count for e in events), "peak_gib": peak / 2 ** 30,
+                          "peak_over_base_gib": (peak - base) / 2 ** 30}
+        log(f"[bench {name}] profiled call {wall:.1f} ms: device busy {busy:.1f} ms (idle "
+            f"{100 * (1 - busy / wall):.1f} %), {profiled[name]['device_kernels']} device kernels/copies "
+            f"from {host} host launches and copies; peak memory {peak / 2 ** 30:.3f} GiB "
+            f"({(peak - base) / 2 ** 30:.3f} GiB over the {base / 2 ** 30:.3f} GiB held before the call), "
+            f"reserved {torch.cuda.memory_reserved() / 2 ** 30:.3f} GiB")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:5]:
+            log(f"[bench {name}]   {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    model.sampler.graphs = True
+    if not profiled["captured"]["host_launches"] < 100 <= profiled["eager"]["host_launches"]:
+        raise AssertionError(f"bench: the captured call issued {profiled['captured']['host_launches']} "
+                             f"host launches and copies (eager {profiled['eager']['host_launches']}); "
+                             "fewer than 100 expected")
+
+    # the wall RTF eagerly and captured in turns, five calls each
+    rtf = {"eager": [], "captured": []}
+    order = [False, True, True, False] * 2 + [False, True]
+    for i, graphs in enumerate(order):
+        model.sampler.graphs = graphs
+        with tf32(*DEFAULT_TF32):
+            (c,) = bench.measure(run, [bench.TIMED_SEEDS[i // 2]])
+        rtf["captured" if graphs else "eager"].append(c["seconds"] / c["audio_s"])
+    model.sampler.graphs = True
+    log(f"[bench rtf] in turns (eager, captured, captured, eager, ...; seeds {list(bench.TIMED_SEEDS)} "
+        f"each side; wall over the call's audio seconds): eager {[round(r, 5) for r in rtf['eager']]} "
+        f"median {np.median(rtf['eager']):.5f}; captured {[round(r, 5) for r in rtf['captured']]} median "
+        f"{np.median(rtf['captured']):.5f}")
+    sigs = [(k[0], k[1:-6], round(g.seconds, 2), round(g.memory_bytes / 2 ** 20, 1))
+            for k, g in model.sampler._graphs.items()]
+    log(f"[bench] the sampler's signatures (path, shape, capture s, pool MiB): {sigs}")
     core_gemm = {e.key[:90]: round(e.self_device_time_total / 1e3, 3) for e in events
                  if CUDA_CORE_GEMM.search(e.key)}
-    log(f"[bench] the profiled call's GEMM kernels off the tensor cores (ms; the codec's): "
+    log(f"[bench] the profiled captured call's GEMM kernels off the tensor cores (ms; the codec's): "
         f"{json.dumps(core_gemm)}")
     precision_check("bench", model, codec, model._get_frontend()(bench.TEXT)[0], bench.prompt_wav(), dev)
     elapsed("bench")
@@ -947,7 +1013,7 @@ def bench_phase(kernels, dev) -> dict:
         elapsed("the .ckpt route")
 
     return {"bench": {"calls": calls, "launches": launches, "rtf": res["report"]["value"],
-                      "throughput_rtf": thr["report"]["value"]}}
+                      "throughput_rtf": thr["report"]["value"], "profiled": profiled, "rtf_turns": rtf}}
 
 
 def codec_train_calls(params, batch: int, n_samples: int) -> list:
@@ -1697,8 +1763,14 @@ def components_phase(kernels, dev, bench: dict) -> None:
             if r["section"] == "convforms" and not r["max_abs_err"] <= CONVFORM_BF16_STEPS * 2.0 ** -7 * r["out_max_abs"]:
                 raise AssertionError(f"bench_components convforms {r['name']!r}: max abs err "
                                      f"{r['max_abs_err']:.3e} at an output peak of {r['out_max_abs']:.3f}")
+        # no stage of the serving call reads the host since its tables are
+        # made once: every mfu row is timed by graph replay
+        by_events = [r["name"] for r in res["rows"] if r["section"] == "mfu" and r["timing"] != "graph"]
+        if by_events:
+            raise AssertionError(f"bench_components {label}: mfu rows not timed by graph replay: {by_events}")
         log(f"[phase 11] [{label}] {len(res['rows'])} rows finite, under both peaks, the counted hand-kernel "
-            f"calls equal to the launches; {checked} rows' K1 / K2 launches held to their shapes")
+            f"calls equal to the launches; {checked} rows' K1 / K2 launches held to their shapes; every "
+            "mfu row timed by graph replay")
     conv = [r for r in runs["bf16"]["rows"] if r["section"] == "convforms"]
     log(f"[phase 11] [convforms] bf16 max abs err {max(r['max_abs_err'] for r in conv):.3e}, at most "
         f"{max(r['max_abs_err'] / r['out_max_abs'] for r in conv) / 2.0 ** -7:.2f} bf16 steps of the output "
@@ -2069,11 +2141,16 @@ def breakdown(label: str, model, codec, wav_in, sample_kwargs: dict) -> None:
     (codes, timbre), enc_ms = timed(lambda: codec.encode_prompt(wav_in))
     ids = (np.asarray(sample_kwargs["phonemes"])[None] if "phonemes" in sample_kwargs
            else model._get_frontend()(sample_kwargs["text"])[0])
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    res, sample_ms = timed(lambda: model.sampler.sample(
-        ids, np.array([ids.shape[1]]), codes[None].astype(np.int64), np.array([codes.shape[-1]]),
-        timbre[None], model.device, vocab_pad=model.vocab_size, generator=gen,
-        fused=sample_kwargs.get("fused", True)))
+
+    def sample():
+        return model.sampler.sample(
+            ids, np.array([ids.shape[1]]), codes[None].astype(np.int64), np.array([codes.shape[-1]]),
+            timbre[None], model.device, vocab_pad=model.vocab_size,
+            generator=torch.Generator(device="cuda").manual_seed(0),
+            fused=sample_kwargs.get("fused", True))
+
+    sample()  # its graphs captured (a signature of its own: codes in, no codec)
+    res, sample_ms = timed(sample)
     _, dec_ms = timed(lambda: codec.decode(res["latents"], torch.as_tensor(timbre[None], device="cuda")))
     log(f"[breakdown {label}] encode_prompt {enc_ms:.1f} ms; prior + denoiser (64 + 64 Euler steps) "
         f"{sample_ms:.1f} ms; codec decode {dec_ms:.1f} ms ({res['frame_bucket']} frames)")
@@ -2085,14 +2162,81 @@ def breakdown(label: str, model, codec, wav_in, sample_kwargs: dict) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     n_launch = sum(e.count for e in events)
+    n_host = sum(e.count for e in prof.key_averages() if HOST_LAUNCH.match(e.key))
     log(f"[breakdown {label}] profiled call {wall:.1f} ms: device busy {busy:.1f} ms "
-        f"({100 * busy / wall:.1f} %), {n_launch} device kernels/copies")
+        f"({100 * busy / wall:.1f} %), {n_launch} device kernels/copies from {n_host} host launches "
+        "and copies")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[breakdown {label}]   {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
 
 
+def graph_check(label: str, sampler, call, kernels) -> dict:
+    """``call()``, a sampling call returning the sampler's dict, eagerly
+    (``graphs=False``) and captured: its first captured call captures each
+    new signature and replays it, the second only replays.  Both from the
+    same speculative-bucket history as the eager call.  Every output of both
+    captured calls must equal the eager call's bit for bit.  Prints each new
+    signature's capture seconds, pool memory and recorded launches.  Returns
+    the replayed call's outputs and launch counts."""
+    history = list(sampler._ratio_history)
+    before = set(sampler._graphs)
+
+    def run(graphs):
+        sampler.graphs = graphs
+        sampler._ratio_history[:] = history
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0), dict(kernels.launches)
+
+    try:
+        ref, eager_ms, eager_launches = run(False)
+        first, first_ms, _ = run(True)
+        again, replay_ms, launches = run(True)
+    finally:
+        sampler.graphs = True
+    for name, out in (("first", first), ("replayed", again)):
+        diffs = {}
+        for k in GRAPH_OUTPUTS:
+            if k in ref:
+                a, b = (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+                        for v in (out[k], ref[k]))
+                if a.shape != b.shape or a.dtype != b.dtype or not np.array_equal(a, b):
+                    diffs[k] = (float(np.abs(a.astype(np.float64) - b.astype(np.float64)).max())
+                                if a.shape == b.shape else f"shape {a.shape} vs {b.shape}")
+        if diffs or out["frame_bucket"] != ref["frame_bucket"]:
+            raise AssertionError(f"[graphs {label}] the {name} captured call differs from the eager "
+                                 f"call: {diffs}, frame bucket {out['frame_bucket']} vs {ref['frame_bucket']}")
+    if launches != eager_launches:
+        raise AssertionError(f"[graphs {label}] a replay counted {launches}, the eager call {eager_launches}")
+    new = {k: v for k, v in sampler._graphs.items() if k not in before}
+    for key, g in new.items():
+        log(f"[graphs {label}] captured {key[0]} {key[1:-6]}: {g.seconds:.2f} s (warm-up, capture, "
+            f"instantiation), pool +{g.memory_bytes / 2 ** 20:.1f} MiB, recorded launches {json.dumps(g.launches)}")
+    log(f"[graphs {label}] {', '.join(k for k in GRAPH_OUTPUTS if k in ref)}: the first captured call and "
+        f"a replay equal the eager call bit for bit; eager {eager_ms:.1f} ms, first captured call "
+        f"{first_ms:.1f} ms, replay {replay_ms:.1f} ms (host clock, each ends in synchronize); "
+        f"{sampler.captures} signatures held")
+    return {"out": again, "launches": launches, "captured": new}
+
+
 def drive(label: str, model, codec, wav_in, sample_kwargs: dict, kernels) -> dict:
-    """One counted call of a main path, its checks, and five warm calls."""
+    """A main path's call eagerly against captured (``graph_check``), one
+    counted replay of it through ``Flamed.sample``, its checks, and five
+    warm calls."""
+    ids = (np.asarray(sample_kwargs["phonemes"])[None] if "phonemes" in sample_kwargs
+           else model._get_frontend()(sample_kwargs["text"])[0])
+    fused = sample_kwargs.get("fused", True)
+    if fused:
+        padded, n_frames = codec.pad_prompt_wav(wav_in)
+        prompt = {"prompt_wav": padded[None], "prompt_frames": np.array([n_frames])}
+    else:
+        codes, timbre = codec.encode_prompt(wav_in)
+        prompt = {"prompts": codes[None].astype(np.int64), "timbres": timbre[None]}
+    graph_check(label, model.sampler, lambda: model.sample_batch(
+        ids, np.array([ids.shape[1]]), codec=codec, seed=0, fused=fused, **prompt), kernels)
     kernels.reset_launches()
     out = model.sample(prompt_raw=wav_in, codec=codec, nsteps_durgen=64, nsteps_denoiser=64,
                        seed=0, **sample_kwargs)
@@ -2103,7 +2247,7 @@ def drive(label: str, model, codec, wav_in, sample_kwargs: dict, kernels) -> dic
     log(f"[main {label}] prompt {len(wav_in)} samples; tgt_len {tgt_len} frames, frame bucket "
         f"{f_bucket}; wav {wav.shape[0]} samples, rms {np.sqrt(np.mean(wav ** 2)):.4f}, "
         f"finite {bool(np.isfinite(wav).all())}")
-    log(f"[main {label}] kernel launches in the main-path call: {json.dumps(launches)}")
+    log(f"[main {label}] kernel launches in the main-path call (its graphs replayed): {json.dumps(launches)}")
     calls = main_path_calls(codec, len(codec.pad_prompt_wav(wav_in)[0]), f_bucket)
     expected = {k: sum(1 for c in calls if c[0] == k) for k in launches}
     if launches != expected:
@@ -2130,6 +2274,9 @@ def drive(label: str, model, codec, wav_in, sample_kwargs: dict, kernels) -> dic
         f"median RTF {wall / audio_s:.4f}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     return {"launches": launches, "calls": calls, "f_bucket": f_bucket}
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -2435,20 +2582,24 @@ def main() -> int:
     buckets = sampler.frame_buckets
     sampler.frame_buckets = [16] + buckets
     try:
-        kernels.reset_launches()
-        o = sampler.sample(ids, np.array([ids.shape[1]]), None, None, None, dev, codec=codec_b,
-                           vocab_pad=model_b.vocab_size, nsteps_durgen=8, nsteps_denoiser=8,
-                           generator=torch.Generator(device=dev).manual_seed(0), fused=True,
-                           frames_per_phoneme_budget=0.5 * 16 / ids.shape[1],
-                           prompt_wav=padded[None], prompt_frames=np.array([n_frames]))
+        # eagerly and captured: the fused graph at bucket 16, then the stage2
+        # graph at the bucket the target length needs
+        over = graph_check("overflow B", sampler, lambda: sampler.sample(
+            ids, np.array([ids.shape[1]]), None, None, None, dev, codec=codec_b,
+            vocab_pad=model_b.vocab_size, nsteps_durgen=8, nsteps_denoiser=8,
+            generator=torch.Generator(device=dev).manual_seed(0), fused=True,
+            frames_per_phoneme_budget=0.5 * 16 / ids.shape[1],
+            prompt_wav=padded[None], prompt_frames=np.array([n_frames])), kernels)
     finally:
         sampler.frame_buckets = buckets
+    o = over["out"]
     tgt = int(o["tgt_len"][0])
     log(f"[overflow B] speculative bucket 16 frames, tgt_len {tgt}, answered from bucket "
-        f"{o['frame_bucket']}; launches {json.dumps(kernels.launches)} (the prompt's encoder once, "
-        f"the decoder twice)")
+        f"{o['frame_bucket']}; launches of a replayed call {json.dumps(over['launches'])} (the "
+        f"prompt's encoder once, the decoder twice); new graphs {sorted(k[0] for k in over['captured'])}")
     if not (tgt > 16 and o["frame_bucket"] >= tgt and o["wav"].shape[1] == o["frame_bucket"] * 200
-            and np.isfinite(o["wav"]).all() and kernels.launches["snake_filtered"] == 15):
+            and np.isfinite(o["wav"]).all() and over["launches"]["snake_filtered"] == 15
+            and any(k[0] == "stage2" and k[4] == o["frame_bucket"] for k in sampler._graphs)):
         raise AssertionError("the forced overflow retry did not answer from a larger bucket")
 
     # 5. each main-path shape: the kernel against its plain version, then
@@ -2607,6 +2758,7 @@ def main() -> int:
                     "cuDNN convolutions, cover the convs only)",
             "shapes": rows,
         })
+    log(f"[smoke] {time.perf_counter() - T_START:.1f} s in all, the kernels' build included")
     log(json.dumps({"kernels": entries}))
     log(nvidia_smi_line())
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,11 @@ unpacked with ``git archive``).  Each of ``ROUNDS`` rounds runs ``python -m
 flamed_tts_tpu_torch.bench`` in the other checkout and in this one, in the
 order other, this, this, other (the next round starts where the last
 ended), each in its own process; then, once each side, one warm bench call
-profiled by ``torch.profiler`` (device kernels and copies, device-busy ms,
-ms in GEMM kernels off the tensor cores, the prior's and the prob's parameter bytes) and
+profiled by ``torch.profiler`` (device kernels and copies, the host's
+launches and copies that enqueued them, device-busy ms,
+ms in GEMM kernels off the tensor cores, the prior's and the prob's parameter bytes),
+and this checkout's call once more with its sampler's graphs off
+(``graphs=False``, the eager reference: "this_eager"), and
 ``python -m flamed_tts_tpu_torch.bench_components --which mfu`` (its
 stages' device ms, the compute floor).  Prints one JSON object as the last
 line of its output.  Needs a card.
@@ -30,12 +33,15 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROUNDS = 3
 
 # one warm bench call profiled, in the checkout it runs in (the bench's
-# build / make_run / warm are the same functions in both checkouts)
+# build / make_run / warm are the same functions in both checkouts); with
+# the argument "eager", this checkout's sampler runs with graphs off
 PROFILE = r"""
-import json, re, time, torch
+import json, re, sys, time, torch
 from flamed_tts_tpu_torch import bench
 from flamed_tts_tpu_torch.config import load_default_config
 model, codec = bench.build(load_default_config(), "bf16", torch.device("cuda"))
+if sys.argv[1:] == ["eager"]:
+    model.sampler.graphs = False
 run = bench.make_run(model, codec, bench.prompt_wav())
 bench.warm(run)
 acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -48,8 +54,10 @@ with torch.profiler.profile(activities=acts) as prof:
 events = [e for e in prof.key_averages()
           if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
 core = re.compile(r"ffma|simt|sgemm|f32f32_f32f32", re.IGNORECASE)
+host = re.compile(r"^cu(da)?(LaunchKernel|LaunchCooperativeKernel|GraphLaunch|Memcpy|Memset)")
 params = [p for m in (model.prior, model.prob) for p in m.parameters()]
 print(json.dumps({"device_kernels": sum(e.count for e in events), "wall_ms": wall,
+                  "host_launches": sum(e.count for e in prof.key_averages() if host.match(e.key)),
                   "busy_ms": sum(e.self_device_time_total for e in events) / 1e3,
                   "cuda_core_gemm_ms": sum(e.self_device_time_total for e in events
                                            if core.search(e.key)) / 1e3,
@@ -88,7 +96,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             order.append(side)
             print(f"[bench_ab] {side}: RTF {rtf[side][-1]}", file=sys.stderr, flush=True)
     report = {"card": nvidia_smi_line(), "order": order, "rtf": rtf,
-              "profile": {s: _last_json(root, ["-c", PROFILE]) for s, root in sides.items()},
+              "profile": {**{s: _last_json(root, ["-c", PROFILE]) for s, root in sides.items()},
+                          "this_eager": _last_json(HERE, ["-c", PROFILE, "eager"])},
               "components": {s: _components(root) for s, root in sides.items()}}
     print(json.dumps(report), flush=True)
     return report

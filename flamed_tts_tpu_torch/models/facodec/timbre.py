@@ -10,6 +10,7 @@ exact-length result.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -23,14 +24,28 @@ from flamed_tts_tpu_torch.ops.conv1d import conv1d
 _NEG_INF = -1e9
 
 
-def batch_constant_positional_bias(b: int, d_model: int, device=None, max_len: int = 5000) -> Tensor:
-    """(B, 1, d) bias: rows 0..B-1 of the reference's sinusoid buffer."""
+def positional_buffer_np(d_model: int, max_len: int = 5000) -> np.ndarray:
+    """The reference's (max_len, d) sinusoid buffer in float64."""
     position = np.arange(max_len, dtype=np.float64)[:, None]
     div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float64) * (-np.log(10000.0) / d_model))
     pe = np.zeros((max_len, d_model), dtype=np.float64)
     pe[:, 0::2] = np.sin(position * div_term)
     pe[:, 1::2] = np.cos(position * div_term)
-    return torch.as_tensor(pe[:b, None, :], dtype=torch.float32, device=device)
+    return pe
+
+
+@functools.lru_cache(maxsize=None)
+def _positional_bias(b: int, d_model: int, max_len: int, device: torch.device) -> Tensor:
+    return torch.as_tensor(positional_buffer_np(d_model, max_len)[:b, None, :], dtype=torch.float32,
+                           device=device)
+
+
+def batch_constant_positional_bias(b: int, d_model: int, device=None, max_len: int = 5000) -> Tensor:
+    """(B, 1, d) bias: rows 0..B-1 of the reference's sinusoid buffer, built
+    in float64 as the JAX package builds it, once per (shape, device): later
+    calls return the same tensor, so the codec's analysis copies nothing up
+    from the host for it.  Callers must not write into it."""
+    return _positional_bias(b, d_model, max_len, torch.device("cpu" if device is None else device))
 
 
 def _layer_norm(x: Tensor, p: Dict, eps: float = 1e-5) -> Tensor:

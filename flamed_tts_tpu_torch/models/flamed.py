@@ -6,7 +6,10 @@ prompt_raw=wav | prompt_processed=codes + timbre=..., codec=FaCodec)`` runs
 the text frontend, the bucketed sampler (the fused path by default, with
 the prompt analysed on the device in the same queue; ``fused=False`` for
 the staged path after ``FaCodec.encode_prompt``) and synthesizes the wav;
-``sample_batch`` is the same for a batch of phoneme rows.  ``params`` is
+``sample_batch`` is the same for a batch of phoneme rows.  On the card each
+signature of a sampling call is captured once as a CUDA graph and replayed
+after (``runtime/sampler.py``); ``graphs=False`` runs every call eagerly.
+``params`` is
 ``{"prior": state_dict, "prob": state_dict}`` (``convert.params_from_jax``
 makes them from JAX trees); without it ``init_params`` draws random
 weights.  ``from_pretrained`` reads a converted ``.npz`` or the reference's
@@ -79,7 +82,7 @@ def _init_module(module: nn.Module, generator: torch.Generator) -> None:
 class Flamed:
     def __init__(self, cfg: Dict, params: Optional[Dict] = None,
                  device: Union[str, torch.device, None] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, graphs: bool = True):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.prior = PriorGenerator(cfg["prior_generator"])
@@ -97,6 +100,7 @@ class Flamed:
             phoneme_buckets=bucket_list(data.get("phoneme_buckets"), DEFAULT_PHONEME_BUCKETS),
             frame_buckets=bucket_list(data.get("frame_buckets"), DEFAULT_FRAME_BUCKETS),
             prompt_buckets=bucket_list(data.get("prompt_buckets"), DEFAULT_PROMPT_BUCKETS),
+            graphs=graphs,
         )
         self.frontend: Optional[EnglishFrontend] = None
 
@@ -126,6 +130,7 @@ class Flamed:
             for p in module.parameters():
                 if p.is_floating_point():
                     p.data = p.data.to(dtype)
+        self.sampler.reset_graphs()  # they read the parameters' old storage
 
     @classmethod
     def from_pretrained(cls, cfg: Dict, ckpt_path: str, weights_only: bool = True,

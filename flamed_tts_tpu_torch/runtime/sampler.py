@@ -40,16 +40,36 @@ Noise drawn from
 the generator is drawn for the real rows of the whole batch, a pad row
 taking row 0's, and sliced, so each row gets the noise it gets without a
 mesh; noise given in ``noise`` is the whole batch's and is sliced so too.
+
+Compiled once (``graphs``, the default): on the card each signature of a
+call (the path: ``stage1``, ``stage2``, ``fused`` or ``fused_p`` with a
+prompt wav; the batch, the phoneme, prompt and frame buckets, the prompt
+wav's padded length, the Euler step counts, the codec, the parameters'
+type, the matmul precision and the TF32 switches) is captured once as a
+CUDA graph (``runtime/graphs.py``) and every later call replays it, as the
+JAX package compiles each signature once under ``jax.jit``.  The noise is
+drawn from the generator outside the graph, in the order the eager call
+draws it, and goes in with the other inputs, the temperatures as device
+scalars; so the replayed call computes what the eager one computes, with
+the same kernels in the same order.  The fused path's overflow retry
+replays the ``stage2`` graph at the larger bucket.  ``graphs=False`` runs
+every call eagerly (the counterpart of ``jax.disable_jit``); so does a
+call on the CPU, and one with a ``mesh`` (its collectives stay eager).
+``captures`` counts the signatures captured; the graphs read the
+parameters where they lay at the capture, so after the parameters are
+replaced ``reset_graphs()`` must drop them.
 """
 
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from flamed_tts_tpu_torch import precision
 from flamed_tts_tpu_torch.models.facodec.decoder import analyze
 from flamed_tts_tpu_torch.models.facodec.encoder import encoder_forward
 from flamed_tts_tpu_torch.models.prior.sampling import pva_sample
@@ -58,6 +78,7 @@ from flamed_tts_tpu_torch.ops.length_regulator import length_regulate
 from flamed_tts_tpu_torch.ops.masking import mask_from_lengths
 from flamed_tts_tpu_torch.parallel.mesh import axis_size, gather_rows, pad_rows, rows_of
 from flamed_tts_tpu_torch.runtime.buckets import pick_bucket
+from flamed_tts_tpu_torch.runtime.graphs import CapturedCall
 from flamed_tts_tpu_torch.utils.profiling import sample_span
 
 PCM_SCALE = 32767.0
@@ -103,7 +124,7 @@ def pcm16(wav: torch.Tensor) -> torch.Tensor:
 
 class BucketedSampler:
     def __init__(self, prior, prob, phoneme_buckets: Sequence[int],
-                 frame_buckets: Sequence[int], prompt_buckets: Sequence[int]):
+                 frame_buckets: Sequence[int], prompt_buckets: Sequence[int], graphs: bool = True):
         self.prior = prior
         self.prob = prob
         self.phoneme_buckets = list(phoneme_buckets)
@@ -111,37 +132,102 @@ class BucketedSampler:
         self.prompt_buckets = list(prompt_buckets)
         # observed frames per phoneme, for the fused path's speculative bucket
         self._ratio_history: list = []
+        # compiled once: a CapturedCall a signature, all in one memory pool
+        # (a call clones its outputs before another graph replays)
+        self.graphs = graphs
+        # the type a signature is captured in; None: a CUDA graph for a call
+        # on the card, none on the CPU (the tests set a stand-in)
+        self.graph_class = None
+        self._graphs: Dict[tuple, CapturedCall] = {}
+        self._pool = None
+
+    @property
+    def captures(self) -> int:
+        """Signatures captured so far: the size of the JAX package's jit cache."""
+        return len(self._graphs)
+
+    def reset_graphs(self) -> None:
+        """Drop the captured graphs: they read the parameters where they lay."""
+        self._graphs.clear()
+        self._pool = None
+
+    def _signature(self, codec) -> tuple:
+        """What a graph depends on beside its path, shapes and step counts."""
+        return (next(self.prior.parameters()).dtype, next(self.prob.parameters()).dtype,
+                precision.get_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32,
+                None if codec is None else (codec, codec.fuse_blocks,
+                                            codec.dec_params["stem"]["w"].dtype))
+
+    def _run(self, key: Optional[tuple], fn, inputs: Dict[str, torch.Tensor]) -> tuple:
+        """``fn(**inputs)``: eagerly where ``key`` is None, else by replaying
+        the graph of signature ``key``, captured at its first call."""
+        if key is None:
+            return fn(**inputs)
+        call = self._graphs.get(key)
+        if call is None:
+            with sample_span("capture"):
+                call = (self.graph_class or CapturedCall)(fn, inputs, self._pool)
+            self._graphs[key] = call
+            self._pool = call.pool
+        return call(inputs)
 
     # --- the stages, all on the device -----------------------------------
 
-    def _stage1(self, phonemes, src_lens, noise, generator, nfe, temperature, rows=None):
-        b, l_bucket = phonemes.shape
-        src_mask = mask_from_lengths(src_lens, l_bucket)
+    def _durations(self, nfe, phonemes, src_lens, dur, sil, temperature):
+        """Stage 1 on the noise ``dur``, ``sil`` (B, L): (enc_out, phone_dur,
+        sil_dur, the raw target length)."""
+        src_mask = mask_from_lengths(src_lens, phonemes.shape[1])
         enc_out = self.prior.encode(phonemes, src_mask)
-        phone_dur, sil_dur = pva_sample(
-            self.prior, enc_out, src_mask,
-            _noise(noise, "dur", (b, l_bucket), phonemes.device, generator, rows),
-            _noise(noise, "sil", (b, l_bucket), phonemes.device, generator, rows),
-            nfe, temperature)
+        phone_dur, sil_dur = pva_sample(self.prior, enc_out, src_mask, dur, sil, nfe, temperature)
         valid = (~src_mask).float()
         tgt_len = ((torch.clamp(phone_dur, min=1.0) * valid).sum(1)
                    + (sil_dur * valid).sum(1)).to(torch.int64)
         return enc_out, phone_dur, sil_dur, tgt_len
 
-    def _stage2(self, enc_out, phone_dur, sil_dur, src_lens, prompts, prompt_lens, f_bucket,
-                timbres, noise, generator, nfe, temperature, codec, rows=None):
+    def _frames(self, nfe, f_bucket, codec, enc_out, phone_dur, sil_dur, src_lens, prompts,
+                prompt_lens, timbres, latents, temperature):
+        """Stage 2 at frame bucket ``f_bucket`` on the noise ``latents``
+        (B, F, 256): (latents, hiddens, logits, tgt_len, tgt_mask, int16 wav
+        or None)."""
         lr_out, tgt_len = length_regulate(enc_out, phone_dur, sil_dur, src_lens, f_bucket)
         tgt_mask = mask_from_lengths(tgt_len, f_bucket)
         hiddens, logits = self.prior.decode(lr_out, tgt_mask, prompts, prompt_lens)
-        latents = prob_sample(
-            self.prob, hiddens, timbres, tgt_mask,
-            _noise(noise, "latents", (enc_out.shape[0], f_bucket, self.prob.target_dim),
-                   enc_out.device, generator, rows),
-            nfe, temperature)
+        latents = prob_sample(self.prob, hiddens, timbres, tgt_mask, latents, nfe, temperature)
         wav = None
         if codec is not None:
             wav = pcm16(codec.decode(latents, timbres.to(latents.dtype)))
         return latents, hiddens, logits, tgt_len, tgt_mask, wav
+
+    def _fused(self, nsteps_durgen, nsteps_denoiser, f_bucket, codec, p_bucket, vocab_pad, *,
+               phonemes, src_lens, dur, sil, latents, temp_durgen, temp_denoiser, prompts=None,
+               prompt_lens=None, timbres=None, wav=None, wav_frames=None):
+        """The fused call: the prompt's analysis where ``wav`` is given, stage
+        1, stage 2 at ``f_bucket``.  Returns stage 1's outputs and the prompt's
+        (what an overflow retry reads), then stage 2's."""
+        if wav is not None:
+            prompts, prompt_lens, timbres = self._analyze_prompt(codec, wav, wav_frames, p_bucket,
+                                                                 vocab_pad)
+        first = self._durations(nsteps_durgen, phonemes, src_lens, dur, sil, temp_durgen)
+        return (*first, prompts, prompt_lens, timbres,
+                *self._frames(nsteps_denoiser, f_bucket, codec, *first[:3], src_lens, prompts,
+                              prompt_lens, timbres, latents, temp_denoiser))
+
+    def _stage1(self, phonemes, src_lens, noise, generator, nfe, temperature, rows=None):
+        """``_durations`` on noise given in ``noise`` or drawn from ``generator``."""
+        b, l_bucket = phonemes.shape
+        return self._durations(
+            nfe, phonemes, src_lens,
+            _noise(noise, "dur", (b, l_bucket), phonemes.device, generator, rows),
+            _noise(noise, "sil", (b, l_bucket), phonemes.device, generator, rows), temperature)
+
+    def _stage2(self, enc_out, phone_dur, sil_dur, src_lens, prompts, prompt_lens, f_bucket,
+                timbres, noise, generator, nfe, temperature, codec, rows=None):
+        """``_frames`` on noise given in ``noise`` or drawn from ``generator``."""
+        latents = _noise(noise, "latents", (enc_out.shape[0], f_bucket, self.prob.target_dim),
+                         enc_out.device, generator, rows)
+        return self._frames(nfe, f_bucket, codec, enc_out, phone_dur, sil_dur, src_lens, prompts,
+                            prompt_lens, timbres, latents, temperature)
 
     def _analyze_prompt(self, codec, wav, wav_frames, p_bucket, vocab_pad):
         """Prompt audio (B, T, 1) int16 PCM (or float) + true frame counts
@@ -260,6 +346,31 @@ class BucketedSampler:
                               f"largest frame bucket {self.frame_buckets[-1]}; output clipped "
                               "(raise frame_buckets)", stacklevel=3)
 
+        # the signatures' keys, None where the call runs eagerly (module docstring)
+        captured = (self.graphs and mesh is None
+                    and (self.graph_class is not None or device.type == "cuda"))
+
+        def key(path, *shape, codec=codec):
+            return (path, b, l_bucket, *shape, *self._signature(codec)) if captured else None
+
+        def draw(name, shape):
+            """Noise ``name`` of ``shape`` (B first): given, or drawn now."""
+            return _noise(noise, name, shape, device, generator, rows)
+
+        # the temperatures as device scalars, inputs of a graph like the noise
+        temps = [torch.full((), float(t), dtype=torch.float32, device=device)
+                 for t in (temp_durgen, temp_denoiser)]
+
+        def stage2(f_bucket, first):
+            """Stage 2 at ``f_bucket`` on stage 1's ``first`` (enc_out,
+            phone_dur, sil_dur)."""
+            inputs = dict(zip(("enc_out", "phone_dur", "sil_dur"), first), src_lens=src_lens_t,
+                          prompts=prompts_t, prompt_lens=prompt_lens_t, timbres=timbres_t,
+                          latents=draw("latents", (b, f_bucket, self.prob.target_dim)),
+                          temperature=temps[1])
+            return self._run(key("stage2", p_bucket, f_bucket, nsteps_denoiser),
+                             functools.partial(self._frames, nsteps_denoiser, f_bucket, codec), inputs)
+
         if fused:
             if frames_per_phoneme_budget is None:
                 if self._ratio_history:
@@ -282,11 +393,6 @@ class BucketedSampler:
                     wav_t = dev(wav_q[:, :, None])
                     frames_t = dev(np.asarray(prompt_frames, dtype=np.int64))
 
-            def stage2(f_bucket):
-                return self._stage2(enc_out, phone_dur, sil_dur, src_lens_t, prompts_t,
-                                    prompt_lens_t, f_bucket, timbres_t, noise, generator,
-                                    nsteps_denoiser, temp_denoiser, codec, rows)
-
             def fetch(res, *more):
                 """The one transfer: lengths, mask and wav together (the whole
                 batch's on a mesh)."""
@@ -294,17 +400,26 @@ class BucketedSampler:
                 return host + [None if res[5] is None else whole(res[5]).cpu().numpy()]
 
             # fused_dispatch: the host's time to enqueue the whole fused call
-            # (prompt analysis, both Euler loops, the decoder).  Everything in
-            # it is queued on the device and nothing is read back before
-            # fetch(); the one host read is fused_get, which waits for the
-            # device.
+            # (prompt analysis, both Euler loops, the decoder), or the replay
+            # of its graph.  Nothing is read back before fetch(); the one host
+            # read is fused_get, which waits for the device.
             with sample_span("fused_dispatch"):
+                inputs = dict(phonemes=phonemes_t, src_lens=src_lens_t, dur=draw("dur", (b, l_bucket)),
+                              sil=draw("sil", (b, l_bucket)),
+                              latents=draw("latents", (b, f_guess, self.prob.target_dim)),
+                              temp_durgen=temps[0], temp_denoiser=temps[1])
                 if prompt_wav is not None:
-                    prompts_t, prompt_lens_t, timbres_t = self._analyze_prompt(
-                        codec, wav_t, frames_t, p_bucket, vocab_pad)
-                enc_out, phone_dur, sil_dur, tgt_raw = self._stage1(
-                    phonemes_t, src_lens_t, noise, generator, nsteps_durgen, temp_durgen, rows)
-                res = stage2(f_guess)
+                    inputs.update(wav=wav_t, wav_frames=frames_t)
+                    path = key("fused_p", p_bucket, wav_t.shape[1], f_guess, nsteps_durgen,
+                               nsteps_denoiser, vocab_pad)
+                else:
+                    inputs.update(prompts=prompts_t, prompt_lens=prompt_lens_t, timbres=timbres_t)
+                    path = key("fused", p_bucket, f_guess, nsteps_durgen, nsteps_denoiser)
+                out = self._run(path, functools.partial(self._fused, nsteps_durgen, nsteps_denoiser,
+                                                        f_guess, codec, p_bucket, vocab_pad), inputs)
+                first, tgt_raw = out[:3], out[3]
+                prompts_t, prompt_lens_t, timbres_t = out[4:7]
+                res = out[7:]
             with sample_span("fused_get"):
                 tgt_raw_h, tgt_len_h, tgt_mask_h, wav_h = fetch(res, tgt_raw)
             observe(tgt_raw_h)
@@ -313,18 +428,18 @@ class BucketedSampler:
                 # ones again from the same key); only the stages that depend on
                 # the bucket run again
                 with sample_span("fused_dispatch"):
-                    res = stage2(pick_bucket(int(tgt_raw_h.max()), self.frame_buckets))
+                    res = stage2(pick_bucket(int(tgt_raw_h.max()), self.frame_buckets), first)
                 with sample_span("fused_get"):
                     tgt_len_h, tgt_mask_h, wav_h = fetch(res)
             return result(res[0], res[1], res[2], tgt_len_h, tgt_mask_h, wav_h)
 
-        enc_out, phone_dur, sil_dur, tgt_est = self._stage1(
-            phonemes_t, src_lens_t, noise, generator, nsteps_durgen, temp_durgen, rows)
+        inputs = dict(phonemes=phonemes_t, src_lens=src_lens_t, dur=draw("dur", (b, l_bucket)),
+                      sil=draw("sil", (b, l_bucket)), temperature=temps[0])
+        *first, tgt_est = self._run(key("stage1", nsteps_durgen, codec=None),
+                                    functools.partial(self._durations, nsteps_durgen), inputs)
         tgt_est_h = whole(tgt_est).cpu().numpy()  # the one host read between the stages
         observe(tgt_est_h)
-        f_bucket = pick_bucket(int(tgt_est_h.max()), self.frame_buckets)
-        latents, hiddens, logits, tgt_len, tgt_mask, wav = self._stage2(
-            enc_out, phone_dur, sil_dur, src_lens_t, prompts_t, prompt_lens_t, f_bucket,
-            timbres_t, noise, generator, nsteps_denoiser, temp_denoiser, codec, rows)
+        latents, hiddens, logits, tgt_len, tgt_mask, wav = stage2(
+            pick_bucket(int(tgt_est_h.max()), self.frame_buckets), first)
         return result(latents, hiddens, logits, whole(tgt_len).cpu().numpy(),
                       whole(tgt_mask).cpu().numpy(), None if wav is None else whole(wav).cpu().numpy())

@@ -205,11 +205,14 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainState:
         raise ValueError(f"{len(trainset)} training samples make no batch of {batch_size}")
     collator = make_collator(dataset_cfg, args.seed)
 
+    # eager sampling: the validation audio is one call in many steps, and a
+    # captured graph would hold its memory pool through the training
     if args.resume:
-        model = Flamed.from_pretrained(cfg, args.resume, device=device)
+        model = Flamed.from_pretrained(cfg, args.resume, device=device, graphs=False)
         print(f"Resumed params from {args.resume}")
     else:
-        model = Flamed(cfg, device=device, generator=torch.Generator().manual_seed(args.seed))
+        model = Flamed(cfg, device=device, generator=torch.Generator().manual_seed(args.seed),
+                       graphs=False)
     print(f"Parameters: {model.num_params() / 1e6:.2f} M on {model.device}")
     state = init_train_state(model.prior, model.prob, optimizer_cfg, args.seed)
 
