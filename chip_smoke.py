@@ -20,7 +20,7 @@ Phases (any failure exits non-zero before the last line):
      Euler steps): each call eagerly (``graphs=False``) against the same
      call captured as CUDA graphs, its first captured call and a replay,
      every output bit for bit (latents, hiddens, logits, tgt_len, the mask,
-     the int16 PCM), with each signature's capture seconds and pool memory;
+     the int16 PCM), with the first captured call's time and reserved memory;
      then a replayed call with every kernel's launch count set to 0 just
      before and read just after, and five warm calls of each timed:
        A. phonemes -> staged path, fp32 at the "highest" matmul precision
@@ -932,9 +932,9 @@ def bench_phase(kernels, dev) -> dict:
         f"each side; wall over the call's audio seconds): eager {[round(r, 5) for r in rtf['eager']]} "
         f"median {np.median(rtf['eager']):.5f}; captured {[round(r, 5) for r in rtf['captured']]} median "
         f"{np.median(rtf['captured']):.5f}")
-    sigs = [(k[0], k[1:-6], round(g.seconds, 2), round(g.memory_bytes / 2 ** 20, 1))
-            for k, g in model.sampler._graphs.items()]
-    log(f"[bench] the sampler's signatures (path, shape, capture s, pool MiB): {sigs}")
+    n_sig = len(model.sampler._signature(None))
+    sigs = [(k[0], k[1:-n_sig]) for k in model.sampler._graphs]
+    log(f"[bench] the sampler's signatures (path, shape): {sigs}")
     core_gemm = {e.key[:90]: round(e.self_device_time_total / 1e3, 3) for e in events
                  if CUDA_CORE_GEMM.search(e.key)}
     log(f"[bench] the profiled captured call's GEMM kernels off the tensor cores (ms; the codec's): "
@@ -955,13 +955,18 @@ def bench_phase(kernels, dev) -> dict:
         setting = tf32_label()
         prof = profile_sample.main([])
     spans = prof["spans_ms"]
+    stages = {k for k in spans if k.startswith("device")}
     fused = spans.get("fused_dispatch", 0.0) + spans.get("fused_get", 0.0)
     log(f"[profile_sample] {setting}; spans (ms a call): {json.dumps(spans)}; residual {prof['residual_ms']} ms; "
         f"wall {prof['wall_ms']} ms; fused_dispatch + fused_get {fused:.2f} ms "
         f"({100 * fused / prof['wall_ms']:.1f} % of the wall)")
-    if set(spans) != {"frontend", "prompt_prep", "input_place", "prompt_place", "fused_dispatch",
-                      "fused_get"} or fused < 0.5 * prof["wall_ms"]:
+    if set(spans) - stages != {"frontend", "prompt_prep", "input_place", "prompt_place", "fused_dispatch",
+                               "fused_get"} or fused < 0.5 * prof["wall_ms"]:
         raise AssertionError("profile_sample: spans missing, or the fused call is not most of the wall")
+    if stages != {"device." + k for k in ("graph_copy_in", "codec_encode", "durations", "prior_decode",
+                                          "denoiser", "codec_decode", "graph_copy_out")} | {
+            "device_gap.graph_launch"}:
+        raise AssertionError(f"profile_sample: device stages {sorted(stages)}")
     elapsed("profile_sample")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_bench_") as tmp:
@@ -2175,9 +2180,10 @@ def graph_check(label: str, sampler, call, kernels) -> dict:
     (``graphs=False``) and captured: its first captured call captures each
     new signature and replays it, the second only replays.  Both from the
     same speculative-bucket history as the eager call.  Every output of both
-    captured calls must equal the eager call's bit for bit.  Prints each new
-    signature's capture seconds, pool memory and recorded launches.  Returns
-    the replayed call's outputs and launch counts."""
+    captured calls must equal the eager call's bit for bit.  Prints the new
+    signatures' recorded launches and the growth of the reserved memory over
+    the first captured call (their pools).  Returns the replayed call's
+    outputs and launch counts."""
     history = list(sampler._ratio_history)
     before = set(sampler._graphs)
 
@@ -2193,7 +2199,10 @@ def graph_check(label: str, sampler, call, kernels) -> dict:
 
     try:
         ref, eager_ms, eager_launches = run(False)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
         first, first_ms, _ = run(True)
+        reserved = torch.cuda.memory_reserved() - reserved
         again, replay_ms, launches = run(True)
     finally:
         sampler.graphs = True
@@ -2212,9 +2221,11 @@ def graph_check(label: str, sampler, call, kernels) -> dict:
     if launches != eager_launches:
         raise AssertionError(f"[graphs {label}] a replay counted {launches}, the eager call {eager_launches}")
     new = {k: v for k, v in sampler._graphs.items() if k not in before}
+    n_sig = len(sampler._signature(None))
     for key, g in new.items():
-        log(f"[graphs {label}] captured {key[0]} {key[1:-6]}: {g.seconds:.2f} s (warm-up, capture, "
-            f"instantiation), pool +{g.memory_bytes / 2 ** 20:.1f} MiB, recorded launches {json.dumps(g.launches)}")
+        log(f"[graphs {label}] captured {key[0]} {key[1:-n_sig]}: recorded launches {json.dumps(g.launches)}")
+    log(f"[graphs {label}] the first captured call (warm-up, capture, instantiation, replay) reserved "
+        f"+{reserved / 2 ** 20:.1f} MiB")
     log(f"[graphs {label}] {', '.join(k for k in GRAPH_OUTPUTS if k in ref)}: the first captured call and "
         f"a replay equal the eager call bit for bit; eager {eager_ms:.1f} ms, first captured call "
         f"{first_ms:.1f} ms, replay {replay_ms:.1f} ms (host clock, each ends in synchronize); "

@@ -12,6 +12,11 @@ unit (the default), or one K3 launch a block where
 laid out for those kernels once, where the parameters are taken or cast
 (``enc_prepared`` / ``dec_prepared``, beside the parameter trees), not on
 every launch.
+
+``round_trip`` runs under the host spans ``codec_encode`` (the encoder and
+``analyze``) and ``codec_decode`` (``vq2emb`` and the decoder), and marks
+the same stages on the device (``utils/profiling.py``), read after its one
+host read.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from flamed_tts_tpu_torch.ops.masking import mask_from_lengths
 from flamed_tts_tpu_torch.ops.resunit import prepare_unit
 from flamed_tts_tpu_torch.runtime.buckets import DEFAULT_WAV_SECOND_BUCKETS, pick_bucket
 from flamed_tts_tpu_torch.runtime.pytree_io import load_pytree_npz
+from flamed_tts_tpu_torch.utils import profiling
+from flamed_tts_tpu_torch.utils.profiling import END, mark, sample_span
 
 
 class FaCodec:
@@ -121,6 +128,7 @@ class FaCodec:
         wav_t = torch.as_tensor(padded, device=self.device)[None, :, None]
         pad_mask = mask_from_lengths(torch.tensor([n_frames], device=self.device),
                                      len(padded) // self.hop)
+        mark("codec_encode")
         latents = encoder_forward(self.enc_params, wav_t, self.up_ratios_enc, self.fuse_blocks,
                                   self.enc_prepared)
         codes, timbre = analyze(self.dec_params, latents, pad_mask)
@@ -143,6 +151,14 @@ class FaCodec:
         """wav (T,) -> decode(vq2emb(analyze(encode(wav)))) (T',) float32:
         the full analysis-synthesis loop, cut to the whole frames of the
         input."""
-        codes, timbre, n_frames = self._analyze(wav)
-        out = self.decode(vq2emb(self.dec_params, codes), timbre)
-        return out[0, : n_frames * self.hop, 0].float().cpu().numpy()
+        marks = profiling.call_marks(self.device)
+        with profiling.collect(marks):
+            with sample_span("codec_encode"):
+                codes, timbre, n_frames = self._analyze(wav)
+            with sample_span("codec_decode"):
+                mark("codec_decode")
+                out = self.decode(vq2emb(self.dec_params, codes), timbre)
+                mark(END)
+            out = out[0, : n_frames * self.hop, 0].float().cpu().numpy()
+        profiling.read_marks(marks)
+        return out

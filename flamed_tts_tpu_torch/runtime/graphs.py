@@ -27,42 +27,58 @@ after they are replaced (a cast, a load) the graphs must be made anew.
 The kernels' launch counters (``kernels.launches``) keep meaning "ran on
 the device": the warm-up is an eager run and counts, the capture adds
 nothing, and each replay adds the launches its graph recorded.
+
+Device stage marks (``utils/profiling.py``): where a timer is installed at
+the capture, the marks ``fn``'s stages make become event-record nodes of
+the graph (``marks``; the warm-up records none), and a call adds to the
+open collector ``graph_copy_in`` (the input copies), the gap
+``graph_launch`` (from just before the replay to the graph's first node:
+the device's wait for the launch), the graph's own marks and
+``graph_copy_out`` (the output clones).  A graph captured without a timer
+has no such nodes.
 """
 
 from __future__ import annotations
 
-import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from flamed_tts_tpu_torch import kernels
+from flamed_tts_tpu_torch.utils import profiling
 
 
 class CapturedCall:
     def __init__(self, fn: Callable[..., Tuple], inputs: Dict[str, torch.Tensor], pool=None):
-        t0 = time.perf_counter()
         self.inputs = {k: v.clone() for k, v in inputs.items()}
-        self.pool, self.memory_bytes = pool, 0
-        self._warm_up(fn)
+        self.pool = pool
+        with profiling.collect(None):
+            self._warm_up(fn)
         before = dict(kernels.launches)
-        self.outputs = self._capture(fn)
+        self.marks = profiling.call_marks(next(iter(self.inputs.values())).device)
+        with profiling.collect(self.marks):
+            self.outputs = self._capture(fn)
         # the launches recorded in the graph, taken back out of the counters
         self.launches = {k: kernels.launches[k] - n for k, n in before.items()}
         kernels.launches.update(before)
-        self.seconds = time.perf_counter() - t0
 
     def __call__(self, inputs: Dict[str, torch.Tensor]) -> Tuple:
+        profiling.mark("graph_copy_in")
         for k, buf in self.inputs.items():
             v = inputs[k]
             if v.shape != buf.shape or v.dtype != buf.dtype:
                 raise ValueError(f"input {k!r} is {v.dtype} {tuple(v.shape)}, the graph's "
                                  f"{buf.dtype} {tuple(buf.shape)}")
             buf.copy_(v)
+        profiling.mark("graph_launch", gap=True)
         self._replay()
+        profiling.extend_marks(self.marks)
+        profiling.mark("graph_copy_out")
         for k, n in self.launches.items():
             kernels.launches[k] += n
-        return tuple(None if t is None else t.clone() for t in self.outputs)
+        outputs = tuple(None if t is None else t.clone() for t in self.outputs)
+        profiling.mark(profiling.END)
+        return outputs
 
     # --- the CUDA graph ------------------------------------------------------
 
@@ -74,16 +90,10 @@ class CapturedCall:
         torch.cuda.current_stream().wait_stream(side)
 
     def _capture(self, fn) -> Tuple:
-        # the capture empties the allocator's cache first; so do we, so that
-        # the growth of the reserved memory is what the graph's pool took
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, pool=self.pool):
             outputs = tuple(fn(**self.inputs))
         self.pool = self.graph.pool()
-        self.memory_bytes = torch.cuda.memory_reserved() - reserved
         return outputs
 
     def _replay(self) -> None:

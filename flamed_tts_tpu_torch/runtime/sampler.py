@@ -58,6 +58,16 @@ call on the CPU, and one with a ``mesh`` (its collectives stay eager).
 ``captures`` counts the signatures captured; the graphs read the
 parameters where they lay at the capture, so after the parameters are
 replaced ``reset_graphs()`` must drop them.
+
+Device time per stage (``utils/profiling.py``'s marks, while a timer is
+installed): ``codec_encode`` (the prompt's encode + analyze), ``durations``
+(the encoder and the PVA loop), ``prior_decode`` (length regulation and
+the prior's decoders), ``denoiser`` (the denoiser's Euler loop) and
+``codec_decode`` (the codec's synthesis and the int16 quantization), in
+the graph as event nodes or recorded eagerly, read after each host read
+(outside the ``fused_get`` span).  An overflow retry counts its stages
+again: the device ran them twice.  Whether marks are on is part of a
+graph's signature.
 """
 
 from __future__ import annotations
@@ -79,7 +89,8 @@ from flamed_tts_tpu_torch.ops.masking import mask_from_lengths
 from flamed_tts_tpu_torch.parallel.mesh import axis_size, gather_rows, pad_rows, rows_of
 from flamed_tts_tpu_torch.runtime.buckets import pick_bucket
 from flamed_tts_tpu_torch.runtime.graphs import CapturedCall
-from flamed_tts_tpu_torch.utils.profiling import sample_span
+from flamed_tts_tpu_torch.utils import profiling
+from flamed_tts_tpu_torch.utils.profiling import END, mark, sample_span
 
 PCM_SCALE = 32767.0
 FIRST_FRAMES_PER_PHONEME = 9.0  # the budget before any call has been observed
@@ -155,7 +166,7 @@ class BucketedSampler:
         """What a graph depends on beside its path, shapes and step counts."""
         return (next(self.prior.parameters()).dtype, next(self.prob.parameters()).dtype,
                 precision.get_matmul_precision(), torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32,
+                torch.backends.cudnn.allow_tf32, profiling.marking(),
                 None if codec is None else (codec, codec.fuse_blocks,
                                             codec.dec_params["stem"]["w"].dtype))
 
@@ -177,12 +188,14 @@ class BucketedSampler:
     def _durations(self, nfe, phonemes, src_lens, dur, sil, temperature):
         """Stage 1 on the noise ``dur``, ``sil`` (B, L): (enc_out, phone_dur,
         sil_dur, the raw target length)."""
+        mark("durations")
         src_mask = mask_from_lengths(src_lens, phonemes.shape[1])
         enc_out = self.prior.encode(phonemes, src_mask)
         phone_dur, sil_dur = pva_sample(self.prior, enc_out, src_mask, dur, sil, nfe, temperature)
         valid = (~src_mask).float()
         tgt_len = ((torch.clamp(phone_dur, min=1.0) * valid).sum(1)
                    + (sil_dur * valid).sum(1)).to(torch.int64)
+        mark(END)
         return enc_out, phone_dur, sil_dur, tgt_len
 
     def _frames(self, nfe, f_bucket, codec, enc_out, phone_dur, sil_dur, src_lens, prompts,
@@ -190,13 +203,17 @@ class BucketedSampler:
         """Stage 2 at frame bucket ``f_bucket`` on the noise ``latents``
         (B, F, 256): (latents, hiddens, logits, tgt_len, tgt_mask, int16 wav
         or None)."""
+        mark("prior_decode")
         lr_out, tgt_len = length_regulate(enc_out, phone_dur, sil_dur, src_lens, f_bucket)
         tgt_mask = mask_from_lengths(tgt_len, f_bucket)
         hiddens, logits = self.prior.decode(lr_out, tgt_mask, prompts, prompt_lens)
+        mark("denoiser")
         latents = prob_sample(self.prob, hiddens, timbres, tgt_mask, latents, nfe, temperature)
         wav = None
         if codec is not None:
+            mark("codec_decode")
             wav = pcm16(codec.decode(latents, timbres.to(latents.dtype)))
+        mark(END)
         return latents, hiddens, logits, tgt_len, tgt_mask, wav
 
     def _fused(self, nsteps_durgen, nsteps_denoiser, f_bucket, codec, p_bucket, vocab_pad, *,
@@ -233,6 +250,7 @@ class BucketedSampler:
         """Prompt audio (B, T, 1) int16 PCM (or float) + true frame counts
         -> (codes (B, n_q, p_bucket) with ``vocab_pad`` past the true
         length, prompt_lens, timbres float32), all on the device."""
+        mark("codec_encode")
         if not wav.is_floating_point():
             wav = wav.to(torch.float32) * (1.0 / PCM_SCALE)
         n_frames_total = wav.shape[1] // codec.hop
@@ -250,7 +268,9 @@ class BucketedSampler:
         slot = torch.arange(p_bucket, device=wav.device)[None, None, :]
         prompts = torch.where(slot < wav_frames[:, None, None], prompts,
                               torch.full_like(prompts, vocab_pad))
-        return prompts, torch.clamp(wav_frames, max=p_bucket), timbre.float()
+        prompt_lens, timbre = torch.clamp(wav_frames, max=p_bucket), timbre.float()
+        mark(END)
+        return prompts, prompt_lens, timbre
 
     # --- public API --------------------------------------------------------
 
@@ -357,6 +377,8 @@ class BucketedSampler:
             """Noise ``name`` of ``shape`` (B first): given, or drawn now."""
             return _noise(noise, name, shape, device, generator, rows)
 
+        # one call's device stage marks, read after each host read
+        marks = profiling.call_marks(device)
         # the temperatures as device scalars, inputs of a graph like the noise
         temps = [torch.full((), float(t), dtype=torch.float32, device=device)
                  for t in (temp_durgen, temp_denoiser)]
@@ -403,43 +425,52 @@ class BucketedSampler:
             # (prompt analysis, both Euler loops, the decoder), or the replay
             # of its graph.  Nothing is read back before fetch(); the one host
             # read is fused_get, which waits for the device.
-            with sample_span("fused_dispatch"):
-                inputs = dict(phonemes=phonemes_t, src_lens=src_lens_t, dur=draw("dur", (b, l_bucket)),
-                              sil=draw("sil", (b, l_bucket)),
-                              latents=draw("latents", (b, f_guess, self.prob.target_dim)),
-                              temp_durgen=temps[0], temp_denoiser=temps[1])
-                if prompt_wav is not None:
-                    inputs.update(wav=wav_t, wav_frames=frames_t)
-                    path = key("fused_p", p_bucket, wav_t.shape[1], f_guess, nsteps_durgen,
-                               nsteps_denoiser, vocab_pad)
-                else:
-                    inputs.update(prompts=prompts_t, prompt_lens=prompt_lens_t, timbres=timbres_t)
-                    path = key("fused", p_bucket, f_guess, nsteps_durgen, nsteps_denoiser)
-                out = self._run(path, functools.partial(self._fused, nsteps_durgen, nsteps_denoiser,
-                                                        f_guess, codec, p_bucket, vocab_pad), inputs)
-                first, tgt_raw = out[:3], out[3]
-                prompts_t, prompt_lens_t, timbres_t = out[4:7]
-                res = out[7:]
-            with sample_span("fused_get"):
-                tgt_raw_h, tgt_len_h, tgt_mask_h, wav_h = fetch(res, tgt_raw)
+            with profiling.collect(marks):
+                with sample_span("fused_dispatch"):
+                    inputs = dict(phonemes=phonemes_t, src_lens=src_lens_t,
+                                  dur=draw("dur", (b, l_bucket)), sil=draw("sil", (b, l_bucket)),
+                                  latents=draw("latents", (b, f_guess, self.prob.target_dim)),
+                                  temp_durgen=temps[0], temp_denoiser=temps[1])
+                    if prompt_wav is not None:
+                        inputs.update(wav=wav_t, wav_frames=frames_t)
+                        path = key("fused_p", p_bucket, wav_t.shape[1], f_guess, nsteps_durgen,
+                                   nsteps_denoiser, vocab_pad)
+                    else:
+                        inputs.update(prompts=prompts_t, prompt_lens=prompt_lens_t, timbres=timbres_t)
+                        path = key("fused", p_bucket, f_guess, nsteps_durgen, nsteps_denoiser)
+                    out = self._run(path, functools.partial(self._fused, nsteps_durgen, nsteps_denoiser,
+                                                            f_guess, codec, p_bucket, vocab_pad), inputs)
+                    first, tgt_raw = out[:3], out[3]
+                    prompts_t, prompt_lens_t, timbres_t = out[4:7]
+                    res = out[7:]
+                with sample_span("fused_get"):
+                    tgt_raw_h, tgt_len_h, tgt_mask_h, wav_h = fetch(res, tgt_raw)
+            profiling.read_marks(marks)
             observe(tgt_raw_h)
             if int(tgt_raw_h.max()) > f_guess and f_guess < self.frame_buckets[-1]:
                 # overflow: the durations stand (the JAX package gets the same
                 # ones again from the same key); only the stages that depend on
                 # the bucket run again
-                with sample_span("fused_dispatch"):
-                    res = stage2(pick_bucket(int(tgt_raw_h.max()), self.frame_buckets), first)
-                with sample_span("fused_get"):
-                    tgt_len_h, tgt_mask_h, wav_h = fetch(res)
+                with profiling.collect(marks):
+                    with sample_span("fused_dispatch"):
+                        res = stage2(pick_bucket(int(tgt_raw_h.max()), self.frame_buckets), first)
+                    with sample_span("fused_get"):
+                        tgt_len_h, tgt_mask_h, wav_h = fetch(res)
+                profiling.read_marks(marks)
             return result(res[0], res[1], res[2], tgt_len_h, tgt_mask_h, wav_h)
 
         inputs = dict(phonemes=phonemes_t, src_lens=src_lens_t, dur=draw("dur", (b, l_bucket)),
                       sil=draw("sil", (b, l_bucket)), temperature=temps[0])
-        *first, tgt_est = self._run(key("stage1", nsteps_durgen, codec=None),
-                                    functools.partial(self._durations, nsteps_durgen), inputs)
-        tgt_est_h = whole(tgt_est).cpu().numpy()  # the one host read between the stages
+        with profiling.collect(marks):
+            *first, tgt_est = self._run(key("stage1", nsteps_durgen, codec=None),
+                                        functools.partial(self._durations, nsteps_durgen), inputs)
+            tgt_est_h = whole(tgt_est).cpu().numpy()  # the one host read between the stages
+        profiling.read_marks(marks)
         observe(tgt_est_h)
-        latents, hiddens, logits, tgt_len, tgt_mask, wav = stage2(
-            pick_bucket(int(tgt_est_h.max()), self.frame_buckets), first)
-        return result(latents, hiddens, logits, whole(tgt_len).cpu().numpy(),
-                      whole(tgt_mask).cpu().numpy(), None if wav is None else whole(wav).cpu().numpy())
+        with profiling.collect(marks):
+            latents, hiddens, logits, tgt_len, tgt_mask, wav = stage2(
+                pick_bucket(int(tgt_est_h.max()), self.frame_buckets), first)
+            host = [whole(t).cpu().numpy() for t in (tgt_len, tgt_mask)]
+            wav_h = None if wav is None else whole(wav).cpu().numpy()
+        profiling.read_marks(marks)
+        return result(latents, hiddens, logits, *host, wav_h)

@@ -6,11 +6,33 @@
   ``dir``; a no-op when ``dir`` is empty or None.
 * ``StageTimer``: named host-clock spans with a per-name mean, for host-side
   breakdowns of the sampling path (``SAMPLE_TIMER`` / ``sample_span``).
+* ``mark`` / ``Marks``: device time per stage of a call, from timing events
+  the stages record on the device (below).
 * ``graph_ms`` / ``events_ms``: a call's time on the card, from a CUDA
   graph's replay (device time, no host launch cost) or from CUDA events
   around back-to-back calls (the host's launch cost included);
   ``nvidia_smi_line``: the card's name and power limit, to stand beside
   every time taken on it.
+
+The timer interface.  ``SAMPLE_TIMER`` is None (the default: serving does
+not change) or an object with ``span(name)``, a context manager the program
+enters at its host boundaries, and two dicts that default to 0, ``totals``
+(name -> seconds) and ``counts`` (name -> occurrences).  ``StageTimer`` is
+one; a benchmark may install its own.  Device readings are added to the
+same two dicts: ``totals[name] += seconds`` and ``counts[name] += 1``.
+
+Device stage marks.  A stage calls ``mark(name)`` where it starts, and the
+last stage of a piece of work calls ``mark(END)``.  While a timer is
+installed and a collector (``Marks``) is open (``collect``), each mark
+records a timing event on the current CUDA stream (an event-record node of
+the graph when the stream is being captured) or, for work on the CPU, whose
+operators run synchronously, a ``time.perf_counter()`` stamp; otherwise it
+does nothing.  After the call's host read ``read_marks`` turns consecutive
+marks into seconds: the time from a mark to the next is its stage's, under
+``device.<name>`` (``device_gap.<name>`` for a mark made with ``gap=True``,
+a stretch in which the device waits), and from an ``END`` mark to the next
+is nobody's.  In work launched eagerly a stage so runs from its first to
+its last work on the device, the host's launch waits included.
 """
 
 from __future__ import annotations
@@ -91,15 +113,89 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-# Opt-in host-span profiling of the sampling path: a profiling tool
-# (profile_sample.py) installs a StageTimer here; while it is None the spans
-# below are nullcontexts and serving does not change.
+# Opt-in profiling of the sampling path: a profiling tool (profile_sample.py)
+# or a benchmark installs a timer here (the module docstring's interface);
+# while it is None the spans below are nullcontexts, no mark records
+# anything and serving does not change.
 SAMPLE_TIMER: Optional["StageTimer"] = None
+END = "end"
 
 
 def sample_span(name: str):
     t = SAMPLE_TIMER
     return t.span(name) if t is not None else contextlib.nullcontext()
+
+
+class Marks:
+    """One call's device stage marks in order, for ``timer``: CUDA events on
+    a CUDA ``device``, host-clock stamps on the CPU."""
+
+    def __init__(self, device, timer) -> None:
+        self.cuda = torch.device(device).type == "cuda"
+        self.timer = timer
+        self.stamps: list = []  # (name, gap, event or perf_counter seconds)
+
+    def add(self, name: str, gap: bool = False) -> None:
+        if self.cuda:
+            stamp = torch.cuda.Event(enable_timing=True, external=True)
+            stamp.record()
+        else:
+            stamp = time.perf_counter()
+        self.stamps.append((name, gap, stamp))
+
+    def read(self) -> None:
+        """The stages' seconds into the timer, once the device has reached
+        the last mark; the marks are dropped."""
+        for (name, gap, a), (_, _, b) in zip(self.stamps, self.stamps[1:]):
+            if name != END:
+                key = ("device_gap." if gap else "device.") + name
+                self.timer.totals[key] += a.elapsed_time(b) / 1e3 if self.cuda else b - a
+                self.timer.counts[key] += 1
+        self.stamps.clear()
+
+
+_OPEN: Optional[Marks] = None  # the collector ``mark`` records into
+
+
+def marking() -> bool:
+    """Whether marks are on: work captured now holds their event nodes."""
+    return SAMPLE_TIMER is not None
+
+
+def call_marks(device) -> Optional[Marks]:
+    """A collector for one call on ``device``; None while no timer is installed."""
+    t = SAMPLE_TIMER
+    return None if t is None else Marks(device, t)
+
+
+@contextlib.contextmanager
+def collect(marks: Optional[Marks]) -> Iterator[None]:
+    """``marks`` is the open collector over the block (None: none is)."""
+    global _OPEN
+    outer, _OPEN = _OPEN, marks
+    try:
+        yield
+    finally:
+        _OPEN = outer
+
+
+def mark(name: str, gap: bool = False) -> None:
+    """The stage ``name`` starts here (module docstring)."""
+    m = _OPEN
+    if m is not None and SAMPLE_TIMER is not None:
+        m.add(name, gap)
+
+
+def extend_marks(marks: Optional[Marks]) -> None:
+    """Append ``marks`` (a captured graph's, recorded again by its replay)
+    to the open collector."""
+    if marks is not None and _OPEN is not None:
+        _OPEN.stamps.extend(marks.stamps)
+
+
+def read_marks(marks: Optional[Marks]) -> None:
+    if marks is not None:
+        marks.read()
 
 
 class StageTimer:
@@ -109,11 +205,16 @@ class StageTimer:
 
     @contextlib.contextmanager
     def span(self, name: str) -> Iterator[None]:
-        t0 = time.time()
+        """A host-clock span; while a profiler records, also an annotation
+        on its timeline."""
+        rf = (torch.profiler.record_function(name) if torch.autograd._profiler_enabled()
+              else contextlib.nullcontext())
+        t0 = time.perf_counter()
         try:
-            yield
+            with rf:
+                yield
         finally:
-            self.totals[name] += time.time() - t0
+            self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
 
     def summary(self) -> Dict[str, float]:

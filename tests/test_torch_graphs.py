@@ -39,7 +39,8 @@ class EagerGraph(graphs.CapturedCall):
     """Stand-in for a CUDA graph on the CPU (tests only): the capture runs
     the path once on the static buffers and keeps what it returns as the
     static outputs; a replay runs it again on the buffers and writes the
-    results into those outputs."""
+    results into those outputs.  The stage marks of the capture stand for
+    the graph's event nodes: a replay records them again, in their place."""
 
     def _warm_up(self, fn):
         pass
@@ -52,7 +53,13 @@ class EagerGraph(graphs.CapturedCall):
         # a graph's replay runs no wrapper: the counters move by what the
         # capture recorded, which the base class adds
         counters = dict(kernels.launches)
-        for static, new in zip(self.outputs, self.fn(**self.inputs)):
+        nodes = None if self.marks is None else profiling.Marks("cpu", self.marks.timer)
+        with profiling.collect(nodes):
+            outputs = self.fn(**self.inputs)
+        if nodes is not None:
+            assert [m[:2] for m in nodes.stamps] == [m[:2] for m in self.marks.stamps]
+            self.marks = nodes
+        for static, new in zip(self.outputs, outputs):
             if static is not None:
                 static.copy_(new)
         kernels.launches.update(counters)
@@ -240,3 +247,31 @@ def test_launch_counters_count_replays(parts, monkeypatch):
     assert torch.equal(y, snake.snake_filtered(2 * x, alpha, alpha))
     with pytest.raises(ValueError, match="the graph's"):
         g({"x": torch.ones(1, 41, 64)})
+
+
+def test_graph_marks_only_under_a_timer_and_in_the_signature(parts, monkeypatch):
+    """A signature captured while a timer is installed holds the stages'
+    marks as its nodes (the warm-up records none); one captured without holds
+    none, and installing or removing the timer captures anew.  A replay
+    reads the input copies, the launch gap, the graph's stages and the
+    output clones, in that order, each once."""
+    _, captured = _pair(parts)
+    timer = profiling.StageTimer()
+    monkeypatch.setattr(profiling, "SAMPLE_TIMER", timer)
+    CALLS["fused_p"](captured, parts, 0)
+    (marked,) = captured.sampler._graphs.values()
+    assert [m[0] for m in marked.marks.stamps] == [
+        "codec_encode", "end", "durations", "end", "prior_decode", "denoiser", "codec_decode", "end"]
+    assert [k for k in timer.totals if k.startswith("device")] == [
+        "device.graph_copy_in", "device_gap.graph_launch", "device.codec_encode", "device.durations",
+        "device.prior_decode", "device.denoiser", "device.codec_decode", "device.graph_copy_out"]
+    assert all(timer.counts[k] == 1 and timer.totals[k] >= 0 for k in timer.totals
+               if k.startswith("device"))
+    monkeypatch.setattr(profiling, "SAMPLE_TIMER", None)
+    CALLS["fused_p"](captured, parts, 0)
+    assert captured.sampler.captures == 2
+    plain = [g for g in captured.sampler._graphs.values() if g is not marked]
+    assert len(plain) == 1 and plain[0].marks is None
+    monkeypatch.setattr(profiling, "SAMPLE_TIMER", timer)
+    CALLS["fused_p"](captured, parts, 1)
+    assert captured.sampler.captures == 2 and timer.counts["device.denoiser"] == 2

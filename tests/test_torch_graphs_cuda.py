@@ -1,7 +1,8 @@
 """The sampler's captured calls on the card (``runtime/graphs.py``): each
 path captured as CUDA graphs against the same call run eagerly, bit for
-bit, at small prior and prob widths with the trained codec; and a capture
-that fails raises.  Needs a card (``cuda`` marker); imports nothing of JAX,
+bit, at small prior and prob widths with the trained codec; a capture
+that fails raises; and at the serving widths the device stage marks, event
+nodes of the graph, time a replay.  Needs a card (``cuda`` marker); imports nothing of JAX,
 so it runs where only the port is installed:
 
     python -m pytest tests/test_torch_graphs_cuda.py -q -m cuda
@@ -20,6 +21,7 @@ from flamed_tts_tpu_torch.models.codec_wrapper import FaCodec
 from flamed_tts_tpu_torch.models.flamed import Flamed
 from flamed_tts_tpu_torch.precision import matmul_precision
 from flamed_tts_tpu_torch.runtime.graphs import CapturedCall
+from flamed_tts_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -128,3 +130,48 @@ def test_failed_capture_raises(card):
         CapturedCall(lambda x: (x + torch.as_tensor(host, device=dev),), {"x": x})
     torch.cuda.synchronize()
     assert float((x * 2).sum()) == 8.0
+
+
+def test_stage_marks_sum_to_the_replay(card, monkeypatch):
+    """The bench's bf16 call at the serving widths (``bench.build``: the
+    pinned durations, 64 + 64 Euler steps, a 3 s prompt), warmed up under a
+    timer so that its fused graph holds the marks: one replay's stages on
+    the device, the input copies to the output clones, sum to within 2 % of
+    CUDA events around the whole ``CapturedCall.__call__``, each stage
+    read once and above 0."""
+    from flamed_tts_tpu_torch import bench
+
+    dev = card[0]
+    model, codec = bench.build(load_default_config(), "bf16", dev)
+    run = bench.make_run(model, codec, bench.prompt_wav())
+    monkeypatch.setattr(profiling, "SAMPLE_TIMER", profiling.StageTimer())
+    bench.warm(run)
+    timer = profiling.StageTimer()
+    monkeypatch.setattr(profiling, "SAMPLE_TIMER", timer)
+    around = []
+    call = CapturedCall.__call__
+
+    def timed(self, inputs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = call(self, inputs)
+        end.record()
+        around.append((start, end))
+        return out
+
+    monkeypatch.setattr(CapturedCall, "__call__", timed)
+    captures = model.sampler.captures
+    run(1)
+    torch.cuda.synchronize()
+    assert model.sampler.captures == captures and len(around) == 1
+    outer = around[0][0].elapsed_time(around[0][1])
+    stages = {k: 1e3 * timer.totals[k] for k in timer.totals if k.startswith("device")}
+    assert list(stages) == ["device.graph_copy_in", "device_gap.graph_launch", "device.codec_encode",
+                            "device.durations", "device.prior_decode", "device.denoiser",
+                            "device.codec_decode", "device.graph_copy_out"]
+    assert all(timer.counts[k] == 1 for k in stages)
+    assert all(v > 0 for k, v in stages.items() if k.startswith("device."))
+    busy = sum(v for k, v in stages.items() if k.startswith("device."))
+    print(f"[stage marks] replay {outer:.3f} ms (events around the call), stages {busy:.3f} ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    assert abs(busy - outer) <= 0.02 * outer

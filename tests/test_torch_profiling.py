@@ -1,6 +1,6 @@
 """The port's profiling and host-side entry points on the CPU: the
-StageTimer against the JAX package's, the host spans of a fused
-``Flamed.sample``, ``trace`` and ``synthesize --profile-dir``, the training
+StageTimer against the JAX package's, the host spans and device stage marks
+of ``Flamed.sample`` / ``sample_batch`` / ``FaCodec.round_trip``, ``trace`` and ``synthesize --profile-dir``, the training
 summary against ``tools/summarize_training.py``, and
 ``synthesize_via_metadata``'s refusal without a metadata file."""
 
@@ -25,6 +25,12 @@ from flamed_tts_tpu_torch.utils.audio import save_wav
 from torch_parity_utils import ROOT, prompt_wav, small_config, summaries_equal
 
 SPANS = {"frontend", "prompt_prep", "input_place", "prompt_place", "fused_dispatch", "fused_get"}
+STAGES = ("codec_encode", "durations", "prior_decode", "denoiser", "codec_decode")
+
+
+def device_keys(timer):
+    """The timer's device readings, in the order they were first read."""
+    return [k for k in timer.totals if k.startswith("device")]
 
 
 def narrow_config():
@@ -79,14 +85,23 @@ def test_sample_records_the_six_spans_only_with_a_timer(small_model):
         with_timer = run()
     finally:
         profiling.SAMPLE_TIMER = None
-    assert set(timer.summary()) == SPANS
+    assert set(timer.summary()) - set(device_keys(timer)) == SPANS
+    # each stage once, in the order the device ran them (eager on the CPU)
+    assert device_keys(timer) == ["device." + s for s in STAGES]
     assert all(n == 1 for n in timer.counts.values())  # no overflow retry here
     assert all(v >= 0 for v in timer.totals.values())
-    # no timer installed: the old one records nothing more, and the spans
-    # change nothing
+    assert all(timer.totals[k] > 0 for k in device_keys(timer))
+    # no timer installed: the old one records nothing more, no mark is
+    # made, and the spans and marks change nothing
     counts = dict(timer.counts)
-    without = run()
-    assert timer.counts == counts and profiling.SAMPLE_TIMER is None
+    made = []
+    add = profiling.Marks.add
+    profiling.Marks.add = lambda self, *a, **k: made.append(a) or add(self, *a, **k)
+    try:
+        without = run()
+    finally:
+        profiling.Marks.add = add
+    assert timer.counts == counts and profiling.SAMPLE_TIMER is None and made == []
     np.testing.assert_array_equal(without["wav"], with_timer["wav"])
 
 
@@ -107,6 +122,85 @@ def test_overflow_retry_falls_under_the_same_spans(small_model):
     assert out["frame_bucket"] > model.sampler.frame_buckets[0]  # it overflowed the first
     assert timer.counts["fused_dispatch"] == timer.counts["fused_get"] == 2
     assert timer.counts["input_place"] == timer.counts["prompt_place"] == 1
+    # the device ran the stages after the durations twice
+    assert {k: timer.counts[k] for k in device_keys(timer)} == {
+        "device.codec_encode": 1, "device.durations": 1, "device.prior_decode": 2,
+        "device.denoiser": 2, "device.codec_decode": 2}
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "staged"])
+def test_sample_batch_records_the_stages_after_the_prompt(small_model, fused, monkeypatch):
+    """Prompt codes and timbre given (no prompt analysis on the device):
+    the fused and the staged path mark the same four stages, once each."""
+    model, codec = small_model
+    codes, timbre = codec.encode_prompt(prompt_wav(0.5))
+    ids = model._get_frontend()("Good morning.")[0]
+    timer = profiling.StageTimer()
+    monkeypatch.setattr(profiling, "SAMPLE_TIMER", timer)
+    model.sample_batch(ids, np.array([ids.shape[1]]), prompts=codes[None].astype(np.int64),
+                       timbres=timbre[None], codec=codec, nsteps_durgen=2, nsteps_denoiser=2, seed=0,
+                       fused=fused)
+    assert device_keys(timer) == ["device." + s for s in STAGES[1:]]
+    assert all(timer.counts[k] == 1 and timer.totals[k] > 0 for k in device_keys(timer))
+
+
+def test_round_trip_records_its_spans_and_stages(small_model, monkeypatch):
+    _, codec = small_model
+    wav = prompt_wav(0.5)
+    plain = codec.round_trip(wav)
+    timer = profiling.StageTimer()
+    monkeypatch.setattr(profiling, "SAMPLE_TIMER", timer)
+    np.testing.assert_array_equal(codec.round_trip(wav), plain)
+    assert set(timer.totals) == {"codec_encode", "codec_decode", "device.codec_encode",
+                                 "device.codec_decode"}
+    assert device_keys(timer) == ["device.codec_encode", "device.codec_decode"]
+    assert all(timer.counts[k] == 1 and timer.totals[k] > 0 for k in timer.totals)
+
+
+class FakeEvent:
+    """torch.cuda.Event on a host without a card: recorded at 1 ms steps."""
+
+    made: list = []
+
+    def __init__(self, enable_timing=False, blocking=False, interprocess=False, external=False):
+        assert enable_timing and external  # timed, and a graph node under capture
+        self.made.append(self)
+
+    def record(self):
+        self.ms = float(len(self.made))
+
+    def elapsed_time(self, other):
+        return other.ms - self.ms
+
+
+def test_cuda_marks_are_events_only_under_a_timer(monkeypatch):
+    """A mark on a CUDA device records one timing event, and none while no
+    timer is installed; consecutive events become the stages' seconds, an
+    ``end`` mark closing a stage, a gap mark read under ``device_gap.``."""
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(FakeEvent, "made", [])
+    cuda = torch.device("cuda")
+    assert profiling.SAMPLE_TIMER is None and profiling.call_marks(cuda) is None
+    assert not profiling.marking()
+    timer = profiling.StageTimer()
+    marks = profiling.Marks(cuda, timer)
+    with profiling.collect(marks):
+        profiling.mark("a")
+    assert FakeEvent.made == [] and marks.stamps == []
+    monkeypatch.setattr(profiling, "SAMPLE_TIMER", timer)
+    profiling.mark("a")  # no collector open
+    assert FakeEvent.made == [] and profiling.marking()
+    with profiling.collect(marks):
+        for name in ("a", "b"):
+            profiling.mark(name)
+        profiling.mark("launch", gap=True)
+        profiling.mark(profiling.END)
+        profiling.mark("c")
+    assert len(FakeEvent.made) == 5
+    marks.read()
+    assert dict(timer.totals) == {"device.a": 1e-3, "device.b": 1e-3, "device_gap.launch": 1e-3}
+    assert dict(timer.counts) == {"device.a": 1, "device.b": 1, "device_gap.launch": 1}
+    assert marks.stamps == []
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
