@@ -48,6 +48,12 @@ Phases (any failure exits non-zero before the last line):
      around back-to-back calls, which includes the host's launch cost; K3
      also beside three K2 launches at its shape, and K2 and K3 beside what
      their scalar-FMA predecessors read;
+  5b. the denoiser's three kernels (csrc/denoiser.cu) against their plain
+     versions at the serving cells' shapes (B = 1 at bucket 768, B = 4 at
+     1408 with 44.5 % padding; C = 1024, bf16 operands), each use in a step
+     timed as in phase 5 beside its bound (bytes); a step and a 64-step
+     prob_sample at the serving widths through the kernels and through the
+     plain chain, captured, the latents within 0.02 relative L2;
   6. the training path: fabricate 32 utterances of 3-16 s (wav + "phones"
      TextGrid, one of 15.6 s for the 17 s bucket); precompute them on the
      card (codec_r5, fp32: K1 and K2 at up to (272000, 32)), with launch
@@ -514,6 +520,176 @@ def launch_counts(calls) -> dict:
     return {k: sum(1 for c in calls if c[0] == k) for k in SOURCES}
 
 
+def codec_only(launches: dict) -> dict:
+    """The codec kernels' launch counts (K1, K2, K3) of ``launches``: the
+    denoiser's kernels (``kernels.COUNTERS``) run wherever the denoiser
+    does, and are held to its steps where a check counts them."""
+    return {k: launches[k] for k in SOURCES}
+
+
+def denoiser_launches(model, nfe: int) -> dict:
+    """The denoiser kernels' launches of ``nfe`` steps of ``model``'s
+    denoiser: per block two norm_modulate, one conv_norm and two act; the
+    final layer two, one and one."""
+    n = model.prob.denoiser.num_res_blocks
+    return {"norm_modulate": nfe * (2 * n + 2), "conv_norm": nfe * (n + 1), "act": nfe * (2 * n + 1)}
+
+
+# the denoiser's kernels at the serving cells' shapes: (batch, frame bucket,
+# padded share of the frames)
+DENOISER_SHAPES = {"serve": (1, 768, 0.0), "batch4": (4, 1408, 0.445)}
+
+
+@contextlib.contextmanager
+def denoiser_plain_on_card():
+    """The denoiser pieces' plain versions for CUDA tensors too."""
+    from flamed_tts_tpu_torch.ops import denoiser
+
+    saved = denoiser.norm_modulate_cuda, denoiser.conv_norm_cuda, denoiser.activation_cuda
+    denoiser.norm_modulate_cuda = lambda *a: denoiser.norm_modulate_reference(*a[:13])
+    denoiser.conv_norm_cuda = denoiser.conv_norm_reference
+    denoiser.activation_cuda = denoiser.activation_reference
+    try:
+        yield
+    finally:
+        denoiser.norm_modulate_cuda, denoiser.conv_norm_cuda, denoiser.activation_cuda = saved
+
+
+def denoiser_phase(dev) -> list:
+    """Phase 5b: the denoiser's kernels (csrc/denoiser.cu) against their
+    plain versions at the serving cells' shapes, C = 1024, the outputs that
+    feed a product as bf16 operands (serving's "default" precision).  Each
+    use of a kernel in a denoiser step is timed by graph replay (device ms)
+    and by CUDA events per call, beside its plain version (per call) and its
+    bound (the bytes it must move, counted by ``ops/denoiser.py``, at the
+    card's HBM rate).  Then a whole step and a 64-step ``prob_sample`` at
+    the serving widths (bf16 weights), captured, through the kernels and
+    through the plain chain.  Returns the kernel table's rows: per kernel
+    and shape, summed over one step's launches."""
+    from flamed_tts_tpu_torch import kernels
+    from flamed_tts_tpu_torch.config import load_default_config
+    from flamed_tts_tpu_torch.models.prob.prob_generator import ProbGenerator, prob_sample
+    from flamed_tts_tpu_torch.ops import denoiser as dn
+
+    t_phase = time.perf_counter()
+    smem_fn = kernels.library("denoiser").conv_norm_smem_bytes
+    if any(smem_fn(t, ch) != dn.conv_smem_bytes(t, ch) for t in (1, 333, 1408, 5000) for ch in (4, 8)):
+        raise AssertionError("conv_smem_bytes disagrees with denoiser.cu")
+    peaks = costs.device_peaks()
+    rng = np.random.RandomState(17)
+    c, n_blocks = 1024, 4
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).to(dev)
+
+    entries = []
+    for path, (b, t, pad) in DENOISER_SHAPES.items():
+        x, r1, r2 = rand(b, t, c), rand(b, t, c), rand(b, t, c)
+        shift, scale, gate = rand(b, 1, 3 * c, scale=0.5).chunk(3, dim=-1)
+        w, bias, rb = 1.0 + rand(c, scale=0.1), rand(c, scale=0.1), rand(c, scale=0.1)
+        cw, cb = rand(c, 1, 31, scale=31 ** -0.5), rand(c, scale=0.1)
+        lens = torch.tensor([t] + [round((1 - pad) * t)] * (b - 1), device=dev)
+        mask = torch.arange(t, device=dev)[None, :] >= lens[:, None]
+        # (kernel, use, launches a step, dispatch call)
+        uses = [
+            ("norm_modulate", "first block's norm, adding proj_in's bias", 1,
+             lambda: dn.norm_modulate(x, shift, scale, w, bias, 1e-6, rb=rb)),
+            ("norm_modulate", "norm adding the last block's residual", n_blocks - 1,
+             lambda: dn.norm_modulate(x, shift, scale, w, bias, 1e-6, gate=gate, r1=r1, rb=rb)),
+            ("norm_modulate", "final layer's first norm", 1,
+             lambda: dn.norm_modulate(x, shift, scale, None, None, 1e-6, gate=gate, r1=r1, rb=rb)),
+            ("norm_modulate", "MLP's norm (bf16 operand)", n_blocks,
+             lambda: dn.norm_modulate(x, shift, scale, w, bias, 1e-6, gate=gate, r1=r1, r2=r2,
+                                      rb=rb, operand=True)),
+            ("norm_modulate", "final norm, masked, as k3 windows (bf16 operand)", 1,
+             lambda: dn.norm_modulate(x, shift, scale, None, None, 1e-6, gate=gate, r1=r1, r2=r2,
+                                      rb=rb, pad_mask=mask, operand=True, windows=True, keep=False)),
+            ("conv_norm", "k31 conv + masked norm (bf16 operand)", n_blocks + 1,
+             lambda: dn.conv_norm(x, cw, cb, w, bias, mask, 1e-5, operand=True)),
+            ("act", "GELU (bf16 operand)", n_blocks + 1,
+             lambda: dn.activation(x, "gelu", rb, operand=True)),
+            ("act", "SiLU (bf16 operand)", n_blocks, lambda: dn.activation(x, "silu", rb, operand=True)),
+        ]
+        rows = {}
+        with torch.no_grad():
+            for name, use, per_step, call in uses:
+                outs = call()
+                with denoiser_plain_on_card():
+                    refs = call()
+                    p_ms = events_ms(call, 20)
+                outs, refs = (o if isinstance(o, tuple) else (None, o) for o in (outs, refs))
+                err, steps = 0.0, 0.0
+                for o, r in zip(outs, refs):
+                    if o is None or r is None:
+                        continue
+                    diff = (o.float() - r.float()).abs()
+                    err = max(err, float(diff.max()))
+                    if o.dtype == torch.bfloat16:
+                        rf = r.float().abs()
+                        steps = max(steps, float((diff / (2.0 ** -7 * torch.maximum(rf, rf.mean()))).max()))
+                    elif not bool(torch.all(diff <= TOL + TOL * r.abs())):
+                        raise AssertionError(f"denoiser {name} {use} {path}: max abs err {err:.3e}")
+                if steps > 1.0:
+                    raise AssertionError(f"denoiser {name} {use} {path}: {steps:.2f} bf16 steps")
+                with costs.CostCounter() as cc:
+                    call()
+                k_ms, k_wall = graph_ms(call, 20), events_ms(call, 20)
+                b_ms = 1e3 * cc.kernel_bytes / peaks.bytes_per_s
+                log(f"[denoiser] {path} ({b}, {t}, {c}) {name}, {use}, x{per_step} a step: kernel "
+                    f"{k_ms:.4f} ms (graph) / {k_wall:.4f} ms (per call), plain {p_ms:.4f} ms (per call), "
+                    f"bound {b_ms:.5f} ms (bytes, {cc.kernel_bytes / 1e6:.2f} MB; {100 * b_ms / k_ms:.1f} %); "
+                    f"max abs err {err:.3e}, {steps:.2f} bf16 steps")
+                row = rows.setdefault(name, {"launches": 0, "ms": 0.0, "wall_ms": 0.0, "plain_ms": 0.0,
+                                             "bound_ms": 0.0, "max_abs_err": 0.0, "uses": []})
+                row["launches"] += per_step
+                for k, v in (("ms", k_ms), ("wall_ms", k_wall), ("plain_ms", p_ms), ("bound_ms", b_ms)):
+                    row[k] += per_step * v
+                row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["uses"].append({"use": use, "per_step": per_step, "ms": round(k_ms, 4),
+                                    "plain_ms": round(p_ms, 4), "bound_ms": round(b_ms, 5)})
+        for name, row in rows.items():
+            entries.append({
+                "name": name, "route": "cuda", "source": "flamed_tts_tpu_torch/csrc/denoiser.cu",
+                "replaces": None, "dtype": "fp32 (bf16 operands)", "path": path,
+                **{k: (round(v, 5) if isinstance(v, float) else v) for k, v in row.items()},
+                "bound_by": "bytes", "library_ms": None,
+                "note": f"one denoiser step at ({b}, {t}, {c}), {100 * pad:.1f} % padded: sums over the "
+                        "step's launches; ms device time (CUDA graph replay), wall_ms and plain_ms per "
+                        "call (CUDA events, the host's launch cost included); no TPU kernel: the JAX "
+                        "package leaves these chains to XLA"})
+
+    # a whole step and prob_sample at the serving widths, bf16 weights
+    cfg = load_default_config()["prob_generator"]
+    torch.manual_seed(0)
+    prob = ProbGenerator(cfg).to(dev).eval()
+    for p in prob.parameters():
+        p.data = p.data.to(torch.bfloat16)
+    den = prob.denoiser
+    for path, (b, t, pad) in DENOISER_SHAPES.items():
+        lens = torch.tensor([t] + [round((1 - pad) * t)] * (b - 1), device=dev)
+        mask = torch.arange(t, device=dev)[None, :] >= lens[:, None]
+        hid = rand(b, cfg["n_quantizers"], t, cfg["cond_dim"])
+        spk, noise = rand(b, cfg["spk_dim"]), rand(b, t, cfg["target_dim"])
+        with torch.no_grad():
+            mods = [m[0] for m in den.compute_mods(torch.zeros(1, device=dev), spk)]
+            step = lambda: den(noise, mods, mask)  # noqa: E731
+            sample = lambda: prob_sample(prob, hid, spk, mask, noise, 64, 0.3)  # noqa: E731
+            got = sample()
+            s_ms, c_ms = graph_ms(step, 10), graph_ms(sample, 1)
+            with denoiser_plain_on_card():
+                ref = sample()
+                ps_ms, pc_ms = graph_ms(step, 10), graph_ms(sample, 1)
+        valid = ~mask
+        rel = float((got[valid] - ref[valid]).double().norm() / ref[valid].double().norm())
+        log(f"[denoiser] {path} ({b}, {t}): one step {s_ms:.4f} ms through the kernels, {ps_ms:.4f} ms "
+            f"through the plain chain (graph); prob_sample nfe 64 {c_ms:.3f} ms against {pc_ms:.3f} ms "
+            f"(graph); its latents' relative L2 to the plain chain's on the valid frames {rel:.3e} (tol 0.02)")
+        if not (rel <= 0.02 and torch.isfinite(got).all()):
+            raise AssertionError(f"denoiser {path}: prob_sample through the kernels is {rel:.3e} off the plain chain")
+    log(f"[phase 5b] done in {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def training_phase(kernels, compare, codec, dev, tmp: str) -> dict:
     """Phase 6, the training path (see the module docstring).  ``codec`` is
     the fp32 codec of path A (one K2 launch a residual unit); the corpus,
@@ -562,7 +738,7 @@ def training_phase(kernels, compare, codec, dev, tmp: str) -> dict:
         f"peak memory {torch.cuda.max_memory_allocated() / gib:.2f} GiB")
     expected = {"snake_filtered": 5 * TRAIN_UTTERANCES, "residual_unit": 12 * TRAIN_UTTERANCES,
                 "residual_stack": 0}
-    if stats["done"] != TRAIN_UTTERANCES or stats["failed"] or run_launches != expected:
+    if stats["done"] != TRAIN_UTTERANCES or stats["failed"] or codec_only(run_launches) != expected:
         raise AssertionError(f"precompute: {stats}, launches {run_launches}, expected {expected}")
     # one >= 12 s utterance analysed again on the card, TF32 off and its
     # launches counted, against the CPU's plain path
@@ -589,7 +765,7 @@ def training_phase(kernels, compare, codec, dev, tmp: str) -> dict:
         f"max abs diff {float(np.abs(got['emb'] - ref['emb']).max()):.3e}, spk "
         f"{float(np.abs(got['spk'] - ref['spk']).max()):.3e} (not held: TF32 convolutions)")
     calls = encoder_calls(codec, padded)
-    if not ok or padded != 17 * 16000 or launches != launch_counts(calls):
+    if not ok or padded != 17 * 16000 or codec_only(launches) != launch_counts(calls):
         raise AssertionError(f"the card's analysis of utterance 0 disagrees with the CPU's, or "
                              f"its launches {launches} are not those of {padded} samples")
     # K1 and K2 at the first two encoder blocks' lengths of the 17 s bucket
@@ -661,7 +837,7 @@ def training_phase(kernels, compare, codec, dev, tmp: str) -> dict:
         f"{[int(r['val_audio_gt_frames']) for r in audio]})")
     missing = [f for f in files + wavs if not os.path.isfile(f)]
     if (state.step != TRAIN_STEPS or not finite or len(vals) != 2 or missing or len(audio) != 2
-            or train_launches != launch_counts(val_calls) or not train_launches["snake_filtered"]
+            or codec_only(train_launches) != launch_counts(val_calls) or not train_launches["snake_filtered"]
             or not train_launches["residual_unit"]):
         raise AssertionError(f"trainer: step {state.step}, finite {finite}, validations {vals}, "
                              f"missing {missing}, validation audio {audio}, launches "
@@ -867,8 +1043,8 @@ def bench_phase(kernels, dev) -> dict:
                             int(out["frame_bucket"]))
     log(f"[bench] kernel launches in one timed call (seed 1, frame bucket {out['frame_bucket']}): "
         f"{json.dumps(launches)}")
-    if (launches != launch_counts(calls) or not launches["snake_filtered"]
-            or not launches["residual_unit"]):
+    if (codec_only(launches) != launch_counts(calls) or not launches["snake_filtered"]
+            or not launches["residual_unit"] or not launches["conv_norm"]):
         raise AssertionError(f"bench: launches {launches}, expected {launch_counts(calls)}")
 
     # the bench's call eagerly against captured, bit for bit
@@ -1248,7 +1424,7 @@ def codec_train_phase(kernels, compare, dev) -> dict:
         expected = launch_counts(calls)
         log(f"[phase 8] [train_codec] one step's launches {json.dumps(step_launches)}, expected from its "
             f"shapes {json.dumps(expected)} (forward only: the backward is the plain chains' VJPs)")
-        if step_launches != expected:
+        if codec_only(step_launches) != expected:
             raise AssertionError("the codec trainer's step launched other kernels than its shapes give")
         codec_step_breakdown(trained, opt, (wav_b, lab_b, spk_b), n_q)
         # the kernels after optimizer steps read the live weights: each encoder
@@ -1361,7 +1537,7 @@ def codec_train_phase(kernels, compare, dev) -> dict:
     # K1: five heads' snakes + five of the synthesis; K2: five heads' three
     # units + twelve of the synthesis
     if (not finite or out["audio"].shape != (2, 160 * 200, 1) or not sign_err <= GRAD_TOL
-            or dec_launches != {"snake_filtered": 10, "residual_unit": 27, "residual_stack": 0}):
+            or codec_only(dec_launches) != {"snake_filtered": 10, "residual_unit": 27, "residual_stack": 0}):
         raise AssertionError("the training decode failed on the card")
     del dec, heads, out, grads, quantized
     torch.cuda.empty_cache()
@@ -1406,7 +1582,7 @@ def codec_train_phase(kernels, compare, dev) -> dict:
         f"between the card and the CPU")
     re_calls = synth_calls(r["synth"], vc["card"][1].shape[1])
     if (v2_wav.shape != (1, 48000, 1) or re_wav.shape != (1, 48000, 1) or not np.isfinite(v2_wav).all()
-            or not np.isfinite(re_wav).all() or re_launches != launch_counts(re_calls)
+            or not np.isfinite(re_wav).all() or codec_only(re_launches) != launch_counts(re_calls)
             or sorted({(t, c) for k, t, c, *_ in re_calls if k == "residual_unit"})
             != sorted(REDECODER_K2_SHAPES)):
         raise AssertionError("voice conversion did not give a finite 3 s wav on the card, or the "
@@ -1470,7 +1646,8 @@ def eval_phase(kernels, codec, dev) -> dict:
             f"audio in {stats['seconds']:.2f} s: {stats['decoded'] / stats['seconds']:.2f} utterances/s, "
             f"{stats['audio_s'] / stats['seconds']:.1f} audio-s/s (host clock, wav files read and "
             f"written); launches {json.dumps(dump_launches)}, per utterance {json.dumps(per_utt)}")
-        if stats["decoded"] != n or per_utt != {"snake_filtered": 10, "residual_unit": 24, "residual_stack": 0}:
+        if stats["decoded"] != n or codec_only(per_utt) != {"snake_filtered": 10, "residual_unit": 24,
+                                                            "residual_stack": 0}:
             raise AssertionError(f"dump_decoded: {stats}, launches {dump_launches}: expected K1 10, K2 24 a "
                                  "round trip")
         # one short utterance's round trip, card (TF32 off) against the CPU
@@ -1488,8 +1665,9 @@ def eval_phase(kernels, codec, dev) -> dict:
         log(f"[phase 9] [round trip card vs CPU] utterance {shortest} cut to {len(wav)} samples "
             f"({tf32_label()}; launches {json.dumps(rt_launches)}): {n_diff} of {codes_c.size} RVQ codes "
             f"differ; wav max abs diff {err:.3e} (tol {wav_tol:.3e}, phase 4's)")
-        if n_diff != 0 or not err <= wav_tol or rt_launches != {"snake_filtered": 10, "residual_unit": 24,
-                                                                 "residual_stack": 0}:
+        if n_diff != 0 or not err <= wav_tol or codec_only(rt_launches) != {"snake_filtered": 10,
+                                                                             "residual_unit": 24,
+                                                                             "residual_stack": 0}:
             raise AssertionError("the card's round trip disagrees with the CPU's")
         elapsed("9.2 dump_decoded")
 
@@ -1614,7 +1792,7 @@ def eval_phase(kernels, codec, dev) -> dict:
             f"the frontend's loading); launches per entry {json.dumps(per_entry)}")
         finite = all(report[k] is not None and np.isfinite(report[k]) for k in report)
         if (report["n_evaluated"] != EVAL_ENTRIES or not finite
-                or per_entry != {"snake_filtered": 10, "residual_unit": 24, "residual_stack": 0}):
+                or codec_only(per_entry) != {"snake_filtered": 10, "residual_unit": 24, "residual_stack": 0}):
             raise AssertionError("evaluate: missing entries, a non-finite metric, or launches other than "
                                  "two encode_prompt calls an entry")
         elapsed("9.5 evaluate")
@@ -1632,8 +1810,8 @@ def eval_phase(kernels, codec, dev) -> dict:
             + f" ({s1['codec_timbre']['n_same_pairs']} / {s1['codec_timbre']['n_diff_pairs']} pairs); "
             f"launches {json.dumps(kernels.launches)} for {n_wavs} 3 s crops")
         if (set(s1) != {"codec_timbre", "melstats", "asr_spk", "n_speakers"}
-                or kernels.launches != {"snake_filtered": 5 * n_wavs, "residual_unit": 12 * n_wavs,
-                                        "residual_stack": 0}):
+                or codec_only(kernels.launches) != {"snake_filtered": 5 * n_wavs,
+                                                    "residual_unit": 12 * n_wavs, "residual_stack": 0}):
             raise AssertionError("stage 1: an embedder is missing, or launches other than one "
                                  "encode_prompt a crop")
         wav = eval_discrimination.trim_to_speech(load_wav(items[0][0]))
@@ -1760,7 +1938,7 @@ def components_phase(kernels, dev, bench: dict) -> None:
         checked = 0
         for r in res["rows"]:
             want = launch_counts(expected.get(r["name"], []))
-            if r["launches"] != want:
+            if codec_only(r["launches"]) != want:
                 raise AssertionError(f"bench_components {label} {r['name']!r}: launches {r['launches']}, "
                                      f"expected from its shapes {want}")
             checked += r["name"] in expected
@@ -1930,7 +2108,7 @@ def parallel_phase(kernels, codec, model, dev, work: str) -> dict:
         f"{json.dumps(expected)}), without a mesh {json.dumps(b['launches'])}")
     if (not np.array_equal(a["tgt_len"], b["tgt_len"]) or not np.array_equal(a["tgt_mask"], b["tgt_mask"])
             or a["frame_bucket"] != b["frame_bucket"] or not codes_equal or not wav_err <= wav_tol
-            or not np.isfinite(a["wav"]).all() or a["launches"] != expected
+            or not np.isfinite(a["wav"]).all() or codec_only(a["launches"]) != expected
             or a["launches"]["residual_unit"] == 0 or a["launches"]["snake_filtered"] == 0):
         raise AssertionError("sample_batch on a 1 x 1 mesh disagrees with the call without one")
     elapsed("10.2 sample_batch on a mesh")
@@ -2260,7 +2438,7 @@ def drive(label: str, model, codec, wav_in, sample_kwargs: dict, kernels) -> dic
         f"finite {bool(np.isfinite(wav).all())}")
     log(f"[main {label}] kernel launches in the main-path call (its graphs replayed): {json.dumps(launches)}")
     calls = main_path_calls(codec, len(codec.pad_prompt_wav(wav_in)[0]), f_bucket)
-    expected = {k: sum(1 for c in calls if c[0] == k) for k in launches}
+    expected = {**launch_counts(calls), **denoiser_launches(model, 64)}
     if launches != expected:
         raise AssertionError(f"path {label}: launches {launches}, expected {expected}")
     if wav.shape != (tgt_len * codec.hop,) or not np.isfinite(wav).all() or tgt_len <= 0:
@@ -2680,6 +2858,9 @@ def main() -> int:
             f"kernel {k3:.4f} ms (graph), three residual_unit launches {k2:.4f} ms (graph), plain "
             f"{p_ms:.4f} ms (per call), bound {b_ms:.5f} ms ({b_by})")
 
+    # 5b. the denoiser's kernels at the serving cells' shapes
+    denoiser_entries = denoiser_phase(dev)
+
     # 6. the training path: precompute on the card, training at full width,
     # resume and serve; then its kernels at the shapes of one 17 s
     # utterance's analysis and of the trainer run's validation audio
@@ -2769,6 +2950,7 @@ def main() -> int:
                     "cuDNN convolutions, cover the convs only)",
             "shapes": rows,
         })
+    entries += denoiser_entries
     log(f"[smoke] {time.perf_counter() - T_START:.1f} s in all, the kernels' build included")
     log(json.dumps({"kernels": entries}))
     log(nvidia_smi_line())

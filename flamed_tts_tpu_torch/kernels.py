@@ -7,7 +7,9 @@ build happens at first use into ``build/kernels/`` at the repository root
 unchanged library is reused); ``build()`` compiles all sources at once,
 one ``nvcc`` process each.
 
-``launches`` counts, per kernel, the launches its wrapper has made; a run
+``launches`` counts, per kernel, the launches its wrapper has made (the
+codec's libraries hold one kernel each, named as the library; the
+denoiser's holds three, ``COUNTERS``); a run
 sets them to 0 with ``reset_launches()`` and reads them afterwards to show
 which kernels a path went through.
 
@@ -37,8 +39,9 @@ SOURCES = {
     "snake_filtered": ("snake_filtered.cu", "snake.cuh"),
     "residual_unit": ("residual_unit.cu", "resunit.cuh", "snake.cuh"),
     "residual_stack": ("residual_stack.cu", "resunit.cuh", "snake.cuh"),
+    "denoiser": ("denoiser.cu",),
 }
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "snake_filtered": {"snake_filtered_launch": [_P] * 4 + [_I] * 4 + [_P]},
     "residual_unit": {
@@ -49,10 +52,19 @@ SIGNATURES = {
         "residual_stack_launch": [_P] * 3 + [_I] * 8 + [_P],
         "residual_stack_smem_bytes": [_I] * 6,
     },
+    "denoiser": {
+        "norm_modulate_launch": [_P] * 5 + [_I] * 2 + [_P] * 2 + [_I] * 2 + [_P] * 5 + [_I] * 3
+                                + [_F, _I, _I, _P],
+        "conv_norm_launch": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
+        "conv_norm_smem_bytes": [_I] * 2,
+        "act_launch": [_P] * 3 + [ctypes.c_longlong] + [_I] * 3 + [_P],
+    },
 }
 IO_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' io types
 
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
+# launch counters: one a library, named as it, but the denoiser's three kernels
+COUNTERS = {"denoiser": ("norm_modulate", "conv_norm", "act")}
+launches: Dict[str, int] = {k: 0 for name in SOURCES for k in COUNTERS.get(name, (name,))}
 build_log: Dict[str, str] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.RLock()
@@ -198,17 +210,23 @@ def needs_grad(*tensors) -> bool:
     return True
 
 
-def plain_vjp(plain, inputs, grad_out: torch.Tensor, needs) -> tuple:
+def plain_vjp(plain, inputs, grad_out, needs) -> tuple:
     """The backward of a kernel's ``torch.autograd.Function``: its plain
     version ``plain(*inputs)`` recomputed under grad on the saved input and
     the live parameters, and ``torch.autograd.grad`` of it for each of
     ``inputs`` whose ``needs`` entry is true (None for the others).  It is
     the plain chain's VJP at the kernel's input; nothing of the forward is
-    kept between the two."""
+    kept between the two.  ``inputs`` may hold None (an absent optional
+    tensor); a ``plain`` with several outputs takes a tuple of them in
+    ``grad_out``."""
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
-        wanted = [t for t in leaves if t.requires_grad]
-        grads = iter(torch.autograd.grad(plain(*leaves), wanted, grad_out))
+        leaves = [t if t is None else t.detach().requires_grad_(bool(n)) for t, n in zip(inputs, needs)]
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        outs = plain(*leaves)
+        if not isinstance(outs, tuple):
+            outs, grad_out = (outs,), (grad_out,)
+        pairs = [(o, g) for o, g in zip(outs, grad_out) if o.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs]))
     return tuple(next(grads) if n else None for n in needs)
 
 

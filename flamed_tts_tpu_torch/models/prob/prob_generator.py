@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import Tensor, nn
 
 from flamed_tts_tpu_torch import precision
-from flamed_tts_tpu_torch.ops.convnext import AdaLNResBlock, FinalLayer, TimestepEmbedder
+from flamed_tts_tpu_torch.ops.convnext import AdaLNResBlock, FinalLayer, Residual, TimestepEmbedder
 from flamed_tts_tpu_torch.ops.dropout import BatchRows, denominator, draw
 from flamed_tts_tpu_torch.ops.norms import MaskedGroupNorm
 
@@ -114,7 +114,9 @@ class SimpleMLPAdaLN(nn.Module):
         if self.tp is not None:
             from flamed_tts_tpu_torch.parallel import tensor_parallel
             return tensor_parallel.forward(self, x, mods, pad_mask)
-        x = self.proj_in(x)
+        # the first block's norm adds proj_in's bias, each later one the last
+        # block's residual (``ops/convnext.py``)
+        x = Residual(precision.linear(x, self.proj_in.weight), None, None, self.proj_in.bias)
         for blk, m in zip(self.blocks(), mods):
             x = blk(x, m, pad_mask)
         return self.final_layer(x, mods[-1], pad_mask)

@@ -3,23 +3,58 @@
 GELU is the exact (erf) form; ResBlock LayerNorms are affine with eps
 1e-6, FinalLayer norms have no affine; adaLN modulation order is
 (shift_conv, scale_conv, gate_conv, shift_mlp, scale_mlp[, gate_mlp]).
+
+A block's forward runs its products (``precision.linear``, without their
+bias) and, between them, the pieces of ``ops/denoiser.py``: one CUDA kernel
+each on the card, the ops they fuse, one by one, on the CPU.  The piece
+that reads a product adds its bias.  The residual add that ends an
+AdaLNResBlock (x + gate_mlp * (h + bias)) is left to the norm that reads
+it next, which adds it as it loads x: the block returns it as a
+``Residual``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
 from flamed_tts_tpu_torch import precision
+from flamed_tts_tpu_torch.ops import denoiser
+from flamed_tts_tpu_torch.ops.denoiser import depthwise_conv1d, modulate  # noqa: F401 (modulate: parallel/)
 from flamed_tts_tpu_torch.ops.embeddings import dit_timestep_embedding
-from flamed_tts_tpu_torch.ops.norms import MaskedGroupNorm, layer_norm_noaffine
+from flamed_tts_tpu_torch.ops.norms import MaskedGroupNorm
 
 
-def modulate(x: Tensor, shift: Tensor, scale: Tensor) -> Tensor:
-    return x * (1.0 + scale) + shift
+@dataclass(frozen=True)
+class Residual:
+    """x + gate * (h + bias), the add not made yet (h a product, bias its
+    bias), or x + bias where h is None (x the product).  (Not a pytree:
+    gate is a view of the modulations, which a module hook must not take for
+    an output.)"""
+    x: Tensor
+    h: Optional[Tensor]
+    gate: Optional[Tensor]
+    bias: Optional[Tensor] = None
+
+    def value(self) -> Tensor:
+        if self.h is None:
+            return denoiser.add_bias(self.x, self.bias)
+        return self.x + self.gate * denoiser.add_bias(self.h, self.bias)
+
+
+def norm_in(x: Union[Tensor, Residual], shift: Tensor, scale: Tensor, norm: Optional[nn.LayerNorm],
+            eps: float = 1e-6) -> Tuple[Tensor, Tensor]:
+    """(x, the modulated norm of x) where x may be a ``Residual`` (then
+    added first); ``norm`` None: a LayerNorm without affine."""
+    weight, bias, eps = (None, None, eps) if norm is None else (norm.weight, norm.bias, norm.eps)
+    if isinstance(x, Residual):
+        return denoiser.norm_modulate(x.x, shift, scale, weight, bias, eps, gate=x.gate, r1=x.h,
+                                      rb=x.bias)
+    return denoiser.norm_modulate(x, shift, scale, weight, bias, eps)
 
 
 class DepthwiseConv1D(nn.Conv1d):
@@ -35,11 +70,7 @@ class DepthwiseConv1D(nn.Conv1d):
         super().__init__(channels, channels, kernel, padding=padding, groups=channels)
 
     def forward(self, x: Tensor) -> Tensor:
-        # float32 under either precision: the JAX package's depthwise conv is
-        # a sum of shifted products, not a dot
-        return F.conv1d(x.transpose(1, 2), precision.widen(self.weight, x),
-                        precision.widen(self.bias, x), padding=self.padding,
-                        groups=self.groups).transpose(1, 2)
+        return depthwise_conv1d(x, self.weight, self.bias)
 
 
 class TimestepEmbedder(nn.Module):
@@ -65,9 +96,14 @@ class ConvNeXtBlock(nn.Module):
         self.conv_3 = precision.Linear(channels * expand, channels)
 
     def forward(self, x: Tensor, pad_mask: Optional[Tensor] = None) -> Tensor:
-        h = x if pad_mask is None else x.masked_fill(pad_mask[:, :, None], 0.0)
-        h = self.ln_1(self.conv_1(h), pad_mask)
-        return x + self.conv_3(F.gelu(self.conv_2(h)))
+        """The block's branch, conv_3(gelu(conv_2(ln_1(conv_1(x masked))))),
+        without conv_3's bias: the caller adds x and the bias, in the norm
+        that reads the sum."""
+        h = denoiser.conv_norm(x, self.conv_1.weight, self.conv_1.bias, self.ln_1.weight,
+                               self.ln_1.bias, pad_mask, self.ln_1.eps, operand=True)
+        h = denoiser.activation(precision.linear(h, self.conv_2.weight), "gelu", self.conv_2.bias,
+                                operand=True)
+        return precision.linear(h, self.conv_3.weight)
 
 
 class AdaLNResBlock(nn.Module):
@@ -84,11 +120,20 @@ class AdaLNResBlock(nn.Module):
     def mods(self, y: Tensor) -> Tensor:
         return self.adaLN_modulation(F.silu(y))
 
-    def forward(self, x: Tensor, mods: Tensor, pad_mask: Optional[Tensor] = None) -> Tensor:
+    def forward(self, x: Union[Tensor, Residual], mods: Tensor,
+                pad_mask: Optional[Tensor] = None) -> Residual:
+        """x + gate_c * (u + conv_in(u)), u = modulate(ln_conv(x)); then
+        the MLP on modulate(ln_mlp(.)): the output x + gate_m * mlp, as a
+        ``Residual``."""
         shift_c, scale_c, gate_c, shift_m, scale_m, gate_m = mods.chunk(6, dim=-1)
-        x = x + gate_c * self.conv_in(modulate(self.ln_conv(x), shift_c, scale_c), pad_mask)
-        h = self.mlp_2(F.silu(self.mlp_0(modulate(self.ln_mlp(x), shift_m, scale_m))))
-        return x + gate_m * h
+        x, u = norm_in(x, shift_c, scale_c, self.ln_conv)
+        x, h = denoiser.norm_modulate(x, shift_m, scale_m, self.ln_mlp.weight, self.ln_mlp.bias,
+                                      self.ln_mlp.eps, gate=gate_c, r1=u,
+                                      r2=self.conv_in(u, pad_mask), rb=self.conv_in.conv_3.bias,
+                                      operand=True)
+        h = denoiser.activation(precision.linear(h, self.mlp_0.weight), "silu", self.mlp_0.bias,
+                                operand=True)
+        return Residual(x, precision.linear(h, self.mlp_2.weight), gate_m, self.mlp_2.bias)
 
 
 class FinalLayer(nn.Module):
@@ -98,14 +143,29 @@ class FinalLayer(nn.Module):
         self.adaLN_modulation = precision.Linear(model_channels, 5 * model_channels)
         self.conv_in = ConvNeXtBlock(model_channels, kernel, padding, expand, groups)
         self.conv_out = precision.Conv1d(model_channels, out_channels, 3, padding=1)
+        self._conv_out_weight = None  # (key, conv_out's weight in the windows' order)
 
     def mods(self, c: Tensor) -> Tensor:
         return self.adaLN_modulation(F.silu(c))
 
-    def forward(self, x: Tensor, mods: Tensor, pad_mask: Optional[Tensor] = None) -> Tensor:
+    def forward(self, x: Union[Tensor, Residual], mods: Tensor,
+                pad_mask: Optional[Tensor] = None) -> Tensor:
         shift_c, scale_c, gate_c, shift_m, scale_m = mods.chunk(5, dim=-1)
-        h = self.conv_in(modulate(layer_norm_noaffine(x), shift_c, scale_c), pad_mask)
-        x = modulate(layer_norm_noaffine(x + gate_c * h), shift_m, scale_m)
-        if pad_mask is not None:
-            x = x.masked_fill(pad_mask[:, :, None], 0.0)
-        return self.conv_out(x.transpose(1, 2)).transpose(1, 2)
+        x, u = norm_in(x, shift_c, scale_c, None)
+        _, windows = denoiser.norm_modulate(x, shift_m, scale_m, gate=gate_c, r1=u,
+                                            r2=self.conv_in(u, pad_mask),
+                                            rb=self.conv_in.conv_3.bias, pad_mask=pad_mask,
+                                            operand=True, windows=True, keep=False)
+        return precision.linear(windows, self.conv_out_weight(), self.conv_out.bias)
+
+    def conv_out_weight(self) -> Tensor:
+        """conv_out's weight in the windows' order (``denoiser.k3_weight``),
+        made once and kept while the parameter's storage and version stand
+        (a copy each call where a gradient flows to it)."""
+        w = self.conv_out.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return denoiser.k3_weight(w)
+        key = (w.data_ptr(), w._version, w.dtype)
+        if self._conv_out_weight is None or self._conv_out_weight[0] != key:
+            self._conv_out_weight = (key, denoiser.k3_weight(w.detach()))
+        return self._conv_out_weight[1]

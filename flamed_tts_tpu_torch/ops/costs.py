@@ -13,10 +13,11 @@ card's peak rates, and a counter of both over any stretch of code.
   is not a view: unfused, so an upper bound on what a fusing compiler
   moves).  The hand kernels are launched through ``ctypes`` and neither
   mode sees them, so their dispatch functions (``ops/snake.py::
-  snake_filtered``, ``ops/resunit.py::residual_unit`` / ``residual_stack``)
-  hand their calls to ``hand_kernels`` while a counter is active: it adds
-  ``kernel_cost`` and runs the call with the modes off, so the plain
-  version's aten ops on the CPU are not counted as well.  A stage's count
+  snake_filtered``, ``ops/resunit.py::residual_unit`` / ``residual_stack``,
+  ``ops/denoiser.py``'s three) hand their calls to ``hand_kernels`` (by
+  ``kernel_cost``) or ``counted`` (their own count) while a counter is
+  active: it adds the count and runs the call with the modes off, so the
+  plain version's aten ops on the CPU are not counted as well.  A stage's count
   is then the same on the card and on the CPU.
 """
 
@@ -160,12 +161,17 @@ def counting() -> bool:
 
 def hand_kernels(calls: Sequence[Tuple[str, int, int]], dtype: torch.dtype, run: Callable):
     """Count ``calls`` ((kernel name, rows, channels) each) on every active
-    counter by ``kernel_cost``, then return ``run()`` with the counters and
-    their modes off: neither the plain version's aten ops nor the wrapper's
-    own are counted, whichever runs."""
+    counter by ``kernel_cost``, then return ``run()`` as ``counted`` does."""
+    return counted([(name, *kernel_cost(name, rows, c, dtype)) for name, rows, c in calls], run)
+
+
+def counted(calls: Sequence[Tuple[str, int, int]], run: Callable):
+    """Count ``calls`` ((kernel name, flops, bytes) each) on every active
+    counter, then return ``run()`` with the counters and their modes off:
+    neither the plain version's aten ops nor the wrapper's own are counted,
+    whichever runs."""
     counters = list(_active)
-    for name, rows, c in calls:
-        flops, nbytes = kernel_cost(name, rows, c, dtype)
+    for name, flops, nbytes in calls:
         for cc in counters:
             cc.kernel_flops += flops
             cc.kernel_bytes += nbytes

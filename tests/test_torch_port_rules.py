@@ -115,18 +115,54 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         residual_unit_cuda(torch.zeros(1, 8, 24), p, 1)
     with pytest.raises(ValueError, match="CUDA tensor"):
         residual_stack_cuda(x, [p, p, p])
+    from flamed_tts_tpu_torch.ops import denoiser
+
+    x, m, w = torch.zeros(1, 8, 128), torch.zeros(1, 1, 128), torch.ones(128)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        denoiser.norm_modulate_cuda(x, m, x, x, w, m, m, w, w, None, 1e-6)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        denoiser.conv_norm_cuda(x, torch.zeros(128, 1, 31), w, w, w, None, 1e-5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        denoiser.activation_cuda(x, w, "gelu")
 
 
-@pytest.mark.parametrize("fuse", [False, True])
-def test_off_cpu_tensors_never_reach_a_plain_version(monkeypatch, fuse):
+def _denoiser_on_meta(monkeypatch, plain):
+    """The denoiser's blocks on meta tensors: every piece goes to its
+    kernel wrapper, which refuses the tensor before any launch."""
+    from flamed_tts_tpu_torch.models.prob.prob_generator import SimpleMLPAdaLN
+    from flamed_tts_tpu_torch.ops import denoiser
+
+    for name in ("norm_modulate_reference", "conv_norm_reference", "activation_reference"):
+        monkeypatch.setattr(denoiser, name, plain)
+    den = SimpleMLPAdaLN(8, 128, 8, 16, 2).to("meta")
+    x, mask = torch.zeros(1, 40, 8, device="meta"), torch.zeros(1, 40, dtype=torch.bool, device="meta")
+    mods = den.mods_at(torch.zeros((), device="meta"), torch.zeros(1, 16, device="meta"))
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        den(x, mods, mask)
+    u, cm = torch.zeros(1, 40, 128, device="meta"), den.blocks()[0].conv_in
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cm(u, mask)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        denoiser.activation(u, "silu")
+    assert not any(kernels.launches.values())
+
+
+@pytest.mark.parametrize("route", [False, True, "denoiser"])
+def test_off_cpu_tensors_never_reach_a_plain_version(monkeypatch, route):
     """A tensor that does not lie on the CPU goes to a kernel wrapper, which
     launches or raises: the dispatchers have no route from it to a plain
-    version.  (A meta tensor stands for an off-CPU tensor on a host without a card.)"""
+    version.  (A meta tensor stands for an off-CPU tensor on a host without
+    a card.)  ``route``: the codec's, with K3 fused or not, or the
+    denoiser's."""
     from flamed_tts_tpu_torch.ops import resunit, snake
 
     def plain(*args, **kwargs):
         raise AssertionError("a plain version was reached from an off-CPU tensor")
 
+    if route == "denoiser":
+        return _denoiser_on_meta(monkeypatch, plain)
+    fuse = route
     for module, name in ((resunit, "residual_unit_reference"), (resunit, "residual_stack_reference"),
                          (resunit, "snake_filtered_reference"), (snake, "snake_filtered_reference")):
         monkeypatch.setattr(module, name, plain)
@@ -171,7 +207,72 @@ def test_no_environment_variable_decides_a_route():
     assert not offenders, offenders
 
 
-@pytest.mark.parametrize("kernel", ["snake_filtered", "residual_unit", "residual_stack"])
+def _denoiser_gradient(monkeypatch, piece):
+    """``test_kernel_wrappers_carry_the_plain_chains_gradient`` for a piece
+    of ``ops/denoiser.py``: every input and parameter, the modulations per
+    frame as the trainer's ``mods_at`` makes them, a mask of padded frames."""
+    from flamed_tts_tpu_torch.ops import denoiser
+
+    def nm_launch(x, gate, r1, r2, rb, shift, scale, weight, bias, pad_mask, eps, out_dtype, keep,
+                  windows):
+        s, out = denoiser.norm_modulate_reference(x, gate, r1, r2, rb, shift, scale, weight, bias,
+                                                  pad_mask, eps, False, windows)
+        return (s if (r1 is not None or rb is not None) and keep else None), out
+
+    monkeypatch.setattr(denoiser, "_norm_modulate_launch", nm_launch)
+    monkeypatch.setattr(denoiser, "_conv_norm_launch",
+                        lambda x, cw, cb, nw, nb, m, eps, dt: denoiser.conv_norm_reference(
+                            x, cw, cb, nw, nb, m, eps, False))
+    monkeypatch.setattr(denoiser, "_activation_launch",
+                        lambda y, bias, kind, dt: denoiser.activation_reference(y, bias, kind, False))
+    rng = np.random.RandomState(3)
+    b, t, c = 2, 40, 16
+
+    def rnd(*shape, scale=1.0):
+        return torch.from_numpy((rng.randn(*shape) * scale).astype(np.float32)).requires_grad_()
+
+    mask = torch.zeros(b, t, dtype=torch.bool)
+    mask[1, 29:] = True
+    x = rnd(b, t, c)
+    mods = rnd(b, t, 3 * c, scale=0.3)
+    shift, scale, gate = mods.chunk(3, dim=-1)
+    if piece == "norm_modulate":
+        r1, r2, rb, w, bias = rnd(b, t, c), rnd(b, t, c), rnd(c), rnd(c), rnd(c)
+        args, n_out = (x, gate, r1, r2, rb, shift, scale, w, bias, mask, 1e-6), 2
+        wrapper, plain = denoiser.norm_modulate_cuda, denoiser.norm_modulate_reference
+        params = [r1, r2, rb, mods, w, bias]
+    elif piece == "conv_norm":
+        cw, cb, w, bias = rnd(c, 1, 31, scale=0.2), rnd(c), rnd(c), rnd(c)
+        args, n_out = (x, cw, cb, w, bias, mask, 1e-5), 1
+        wrapper, plain, params = denoiser.conv_norm_cuda, denoiser.conv_norm_reference, [cw, cb, w, bias]
+    else:
+        bias = rnd(c)
+        args, n_out = (x, bias, "silu"), 1
+        wrapper, plain, params = denoiser.activation_cuda, denoiser.activation_reference, [bias]
+    # norm_modulate also with its k3 windows out (the final layer's)
+    for extra in ([(False,), (False, True)] if piece == "norm_modulate" else [()]):
+        outs = wrapper(*args, *extra)
+        outs = outs if n_out == 2 else (outs,)
+        assert all(type(o.grad_fn).__name__.startswith(
+            {"norm_modulate": "NormModulate", "conv_norm": "ConvNorm", "act": "Activation"}[piece])
+            for o in outs)
+        refs = plain(*args, False, *extra[1:])
+        refs = refs if n_out == 2 else (refs,)
+        assert [o.shape for o in outs] == [r.shape for r in refs]
+        gs = [torch.from_numpy(rng.randn(*o.shape).astype(np.float32)) for o in outs]
+        got = torch.autograd.grad(outs, [x, *params], gs)
+        ref = torch.autograd.grad(refs, [x, *params], gs)
+        for a, r in zip(got, ref):
+            torch.testing.assert_close(a, r, atol=0.0, rtol=0.0)
+    with pytest.raises(RuntimeError, match="float32 only"):
+        wrapper(x.detach().bfloat16().requires_grad_(), *args[1:])
+    with torch.no_grad():  # no grad: the launch itself, no Function
+        res = wrapper(*args)
+        assert all(o.grad_fn is None for o in (res if n_out == 2 else (res,)))
+
+
+@pytest.mark.parametrize("kernel", ["snake_filtered", "residual_unit", "residual_stack",
+                                    "norm_modulate", "conv_norm", "act"])
 def test_kernel_wrappers_carry_the_plain_chains_gradient(monkeypatch, kernel):
     """Under grad a wrapper runs its kernel inside a torch.autograd.Function
     whose backward is the plain chain's VJP.  On the CPU the launch is
@@ -180,6 +281,8 @@ def test_kernel_wrappers_carry_the_plain_chains_gradient(monkeypatch, kernel):
     input and every parameter equal autograd through the plain chain.  A
     bfloat16 input under grad is refused, and so are prepared weights (a
     copy the gradient would not reach)."""
+    if kernel in ("norm_modulate", "conv_norm", "act"):
+        return _denoiser_gradient(monkeypatch, kernel)
     from flamed_tts_tpu_torch.ops import resunit, snake
 
     monkeypatch.setattr(snake, "_launch", snake.snake_filtered_reference)
@@ -246,7 +349,8 @@ def test_cpu_run_launches_no_kernel():
     timbre = torch.from_numpy(rng.randn(1, 256).astype(np.float32))
     wav = codec.decode(latents, timbre)
     assert wav.shape == (1, 400, 1) and torch.isfinite(wav).all()
-    assert kernels.launches == {"snake_filtered": 0, "residual_unit": 0, "residual_stack": 0}
+    assert kernels.launches == {"snake_filtered": 0, "residual_unit": 0, "residual_stack": 0,
+                                "norm_modulate": 0, "conv_norm": 0, "act": 0}
     fused = FaCodec.random_init(torch.Generator().manual_seed(0), device="cpu", fuse_blocks=True)
     assert torch.equal(fused.decode(latents, timbre), wav)  # on the CPU both are the plain chain
     assert not any(kernels.launches.values())
